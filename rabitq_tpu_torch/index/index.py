@@ -86,6 +86,17 @@ class SearchParams(NamedTuple):
             selected exactly (per-task top-R, then global top-R).
     dither: quantize query residuals by floor + the index's dither
             instead of round-to-nearest.
+
+    Not ported from the JAX package's SearchParams:
+    rerank_kernel:  the rerank always runs the gather+L2 kernel on the GPU.
+                    The JAX flag exists because its TPU kernel needs a
+                    second, lane-tiled copy of the base; this kernel reads
+                    the dense base, so there is nothing to turn off.
+    rerank_chunk:   caps the JAX path's [B, R, D] gather transient. The
+                    kernel has none; its CPU twin chunks by bytes itself.
+    rank_precision: "default" ranks clusters with one bf16 MXU pass. The
+                    port ranks in full fp32 (TF32 off), which only moves
+                    near-tied cluster ranks against that setting.
     """
 
     probe: int = 100

@@ -10,8 +10,9 @@ For a batch of queries:
      cluster (ops/scan_kernel.py — the CUDA kernel on the GPU);
   4. select the R lowest rough distances exactly (per-task top-R, then a
      global top-R over the survivors);
-  5. gather the candidates' full-precision rows, exact L2, and the final
-     top-k — deduplicated by id when the build spilled rows.
+  5. exact L2 of the candidates' full-precision rows (ops/rerank_kernel.py
+     — the CUDA gather+L2 kernel on the GPU), and the final top-k —
+     deduplicated by id when the build spilled rows.
 
 Slots past a cluster's size estimate to +inf and never survive selection.
 """
@@ -24,6 +25,7 @@ import torch
 
 from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
 from rabitq_tpu_torch.ops import (
+    cuda_gather_l2,
     cuda_rough_scan,
     pairwise_l2sq,
     quantize_query_residuals,
@@ -152,8 +154,11 @@ def _exact_rerank(
 ) -> torch.Tensor:
     """Exact squared L2 of the candidates' rows, +inf where the rough
     distance was +inf. [B, R]."""
-    diff = index.base[cand.pos] - q_pad[:, None, :]  # [B, R, D]
-    exact = torch.sum(diff * diff, dim=-1)
+    # estimate_candidates clamps positions into [0, n): no range check,
+    # whose device-to-host read would stall the stream every batch.
+    exact = cuda_gather_l2(
+        index.base, cand.pos, q_pad.contiguous(), check_pos=False
+    )
     return torch.where(torch.isfinite(cand.lower_bound), exact, torch.inf)
 
 

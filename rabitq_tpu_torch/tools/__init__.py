@@ -1,0 +1,1 @@
+"""Probes of the port that run on the card (``python -m ...`` each)."""

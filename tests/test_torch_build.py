@@ -26,7 +26,11 @@ import rabitq_tpu_torch.index.build as tbuild
 from bench import make_dataset
 from conftest import make_clustered_dataset
 from rabitq_tpu.ops import pairwise_l2sq
-from torch_parity import port_index_from_jax, random_orthogonal
+from torch_parity import (
+    gist_like_corpus,
+    port_index_from_jax,
+    random_orthogonal,
+)
 
 MAX_TIE_ROWS = 1e-3
 
@@ -63,13 +67,35 @@ def test_build_matches_jax(bits, spill, metric, skewed):
     kw = dict(orthogonal=p, bits=bits, spill=spill, metric=metric, balance=1.5)
     jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
     got = rt.build_index(base, centers, **kw)
-    want = port_index_from_jax(jidx)
+    _assert_build_matches(got, port_index_from_jax(jidx), p, spill)
+    if skewed:
+        assert got.k > centers.shape[0]  # the split happened in both
 
+
+def test_build_matches_jax_at_960d():
+    """The GIST width: dim 960 pads to 1024 in both packages. With 1024
+    coordinates a row, more rows hold one coordinate within f32 rounding
+    of a grid step's rounding boundary: codes may differ in at most 1e-5
+    of all elements (about 1% of rows), each by one grid step (2)."""
+    base, _, centers, p = gist_like_corpus()
+    kw = dict(orthogonal=p, bits=4, spill=0.2, balance=1.5)
+    jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
+    got = rt.build_index(base, centers, **kw)
+    want = port_index_from_jax(jidx)
+    assert (got.dim, got.dim_orig) == (1024, 960)
+    np.testing.assert_array_equal(got.offsets.numpy(), want.offsets.numpy())
+    np.testing.assert_array_equal(got.map_ids.numpy(), want.map_ids.numpy())
+    diff = got.codes.numpy().astype(np.int32) - want.codes.numpy()
+    assert np.count_nonzero(diff) <= 1e-5 * diff.size
+    assert np.isin(diff, (-2, 0, 2)).all()
+    _assert_build_matches(got, want, p, 0.2, max_code_rows=1e-2)
+    np.testing.assert_array_equal(got.base.numpy()[:, 960:], 0.0)
+
+
+def _assert_build_matches(got, want, p, spill, max_code_rows=MAX_TIE_ROWS):
     sizes_g, sizes_w = (np.diff(i.offsets.numpy()) for i in (got, want))
     assert sizes_g.shape == sizes_w.shape
     assert np.abs(sizes_g - sizes_w).sum() <= 2 * MAX_TIE_ROWS * got.n
-    if skewed:
-        assert got.k > centers.shape[0]  # the split happened in both
     for f in ("capacity", "dim", "dim_orig", "code_bits", "dedup_ids", "n"):
         assert getattr(got, f) == getattr(want, f), f
     assert got.dedup_ids == (spill > 0)
@@ -84,7 +110,7 @@ def test_build_matches_jax(bits, spill, metric, skewed):
     _, rg, rw = np.intersect1d(kg, kw_, assume_unique=True, return_indices=True)
     assert 1 - rg.size / got.n <= MAX_TIE_ROWS
     same_code = (got.codes.numpy()[rg] == want.codes.numpy()[rw]).all(axis=1)
-    assert (~same_code).mean() <= MAX_TIE_ROWS
+    assert (~same_code).mean() <= max_code_rows
     rg, rw = rg[same_code], rw[same_code]
     fg, fw = got.factors.numpy()[rg], want.factors.numpy()[rw]
     # ip, ppc, cdsq; ppc is exactly 0 where sum(v) == 0.

@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA rough-scan kernel against its twin.
+"""Card-only tests of the port: the CUDA kernels against their twins.
 
 Marked ``cuda``; they skip where no CUDA device is present. This file
 imports neither JAX nor tests/conftest.py, so on a machine with a card and
@@ -6,8 +6,11 @@ no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The kernel must equal the twin bit for bit (the estimator is written in the
-twin's operation order with explicitly rounded intrinsics).
+The rough-scan kernel must equal its twin bit for bit (the estimator is
+written in the twin's operation order with explicitly rounded intrinsics),
+and so must the int4 kernels (integer arithmetic). The gather-l2 kernel
+sums the same f32 squares as its twin in another order: rtol 1e-5, atol
+1e-5 * max|out|.
 """
 
 import dataclasses
@@ -17,8 +20,17 @@ import pytest
 import torch
 
 import rabitq_tpu_torch as rt
-from chip_smoke import scan_operands
-from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
+from chip_smoke import assert_gather_close, gather_operands, scan_operands
+from rabitq_tpu_torch.ops import (
+    cuda_gather_l2,
+    cuda_int4_dot,
+    cuda_rough_scan,
+    gather_l2_reference,
+    int4_dot_reference,
+    pack_int4,
+    rough_scan_reference,
+)
+from rabitq_tpu_torch.tools import int4probe
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +48,8 @@ def dev():
         (700, 64, 128, 37, 1),
         (5000, 128, 384, 300, 4),
         (3000, 960, 256, 64, 4),
-        (1_200_000, 128, 384, 2048 * 28, 4),  # the main path's shapes
+        (1_200_000, 128, 384, 2048 * 28, 4),  # the sift path's shapes
+        (1_200_000, 1024, 512, 1024 * 80, 4),  # the gist path's shapes
     ],
 )
 def test_kernel_equals_twin(dev, n, d, span, s, bits):
@@ -91,3 +104,94 @@ def test_gpu_search_matches_cpu_search(dev):
     torch.testing.assert_close(
         d_gpu.cpu()[same], d_cpu[same], rtol=1e-5, atol=1e-5
     )
+
+
+@pytest.mark.parametrize(
+    "n,d,b,r",
+    [
+        (3000, 256, 12, 40),
+        (1500, 512, 4, 130),
+        (1_200_000, 128, 2048, 32),  # the sift path's shapes
+        (1_200_000, 1024, 1024, 150),  # the gist path's shapes
+    ],
+)
+def test_gather_l2_kernel_matches_twin(dev, n, d, b, r):
+    base, pos, q = gather_operands(dev, n, d, b, r, seed=n + d)
+    got = cuda_gather_l2(base, pos, q)
+    want = gather_l2_reference(base, pos, q)
+    torch.cuda.synchronize()
+    assert_gather_close(got, want)
+    assert torch.equal(got[:, 2], got[:, 3])  # duplicate positions
+    last = ((base[n - 1][None, :] - q) ** 2).sum(-1)
+    torch.testing.assert_close(got[:, 0], last, rtol=1e-5, atol=1e-3)
+
+
+def test_gather_l2_launch_counter_and_rejections(dev):
+    base, pos, q = gather_operands(dev, 500, 64, 6, 10, seed=3)
+    before = cuda_gather_l2.launches
+    cuda_gather_l2(base, pos, q)
+    assert cuda_gather_l2.launches == before + 1
+    assert cuda_gather_l2(base, pos[:0], q[:0]).shape == (0, 10)
+    assert cuda_gather_l2(base, pos[:, :0], q).shape == (6, 0)
+    assert cuda_gather_l2.launches == before + 1
+    for bad in (-1, 500):
+        p = pos.clone()
+        p[2, 5] = bad
+        with pytest.raises(ValueError, match="outside"):
+            cuda_gather_l2(base, p, q)
+    # Unchecked, the kernel reads no row outside [0, N): NaN there.
+    p = pos.clone()
+    p[2, 5], p[4, 0] = -1, 500
+    got = cuda_gather_l2(base, p, q, check_pos=False)
+    assert got[2, 5].isnan() and got[4, 0].isnan()
+    assert got.isnan().sum() == 2
+    assert cuda_gather_l2.launches == before + 2
+    misaligned = torch.zeros(6 * 64 + 1, device=dev)[1:].view(6, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_gather_l2(base, pos, misaligned)
+    assert cuda_gather_l2.launches == before + 2
+
+
+@pytest.mark.parametrize(
+    "m,n,k",
+    [
+        (int4probe.M, int4probe.N, int4probe.K),  # the TPU probe's shapes
+        (37, 70, 96),  # ragged tiles
+        (65536, 64, 1024),  # a scan window against a batch of queries
+    ],
+)
+@pytest.mark.parametrize("staged", [False, True])
+def test_int4_kernels_equal_twin(dev, m, n, k, staged):
+    a8, b8, want = int4probe.operands(seed=m, m=m, n=n, k=k)
+    a = pack_int4(torch.from_numpy(a8).to(dev))
+    b = pack_int4(torch.from_numpy(b8).to(dev))
+    got = cuda_int4_dot(a, b, staged=staged)
+    assert torch.equal(got, int4_dot_reference(a, b))
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_int4_probe_runs_both_kernels(dev):
+    before = (cuda_int4_dot.launches_direct, cuda_int4_dot.launches_staged)
+    stages = int4probe.run(dev)
+    assert set(stages) == {
+        "1 twin", "1b nbytes", "2 int4_dot_direct", "3 int4_dot_staged"
+    }
+    assert (cuda_int4_dot.launches_direct, cuda_int4_dot.launches_staged) == (
+        before[0] + 1, before[1] + 1
+    )
+
+
+def test_int4_launch_counters_and_rejections(dev):
+    a = torch.zeros((40, 64), dtype=torch.uint8, device=dev)
+    b = torch.zeros((8, 64), dtype=torch.uint8, device=dev)
+    before = (cuda_int4_dot.launches_direct, cuda_int4_dot.launches_staged)
+    for staged in (False, True):
+        assert cuda_int4_dot(a[:0], b, staged=staged).shape == (0, 8)
+        assert cuda_int4_dot(a, b[:0], staged=staged).shape == (40, 0)
+    assert (cuda_int4_dot.launches_direct,
+            cuda_int4_dot.launches_staged) == before
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_int4_dot(a[:, :36], b[:, :36], staged=False)  # K = 72
+    misaligned = torch.zeros(40 * 64 + 4, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_int4_dot(misaligned[4:].view(40, 64), b, staged=True)

@@ -25,7 +25,7 @@ from rabitq_tpu.ops import pairwise_l2sq, quantize_query_residuals, rotate
 from rabitq_tpu.ops.scan_kernel import pallas_rough_scan
 from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
 from reference_model import ref_rough_distance
-from torch_parity import port_index_from_jax
+from torch_parity import gist_like_corpus, port_index_from_jax
 
 # The packages export a ``search`` function that shadows the module name.
 jsearch = importlib.import_module("rabitq_tpu.index.search")
@@ -192,6 +192,28 @@ def test_search_rough_scan_matches_jnp_scan(jax_index):
     pidx = port_index_from_jax(jidx)
     got = tsearch.rough_scan(
         pidx, torch.from_numpy(queries), rt.SearchParams(probe=6, topk=5, rerank=32)
+    )
+    np.testing.assert_array_equal(got.starts.numpy(), np.asarray(want.starts))
+    np.testing.assert_array_equal(
+        got.n_scanned.numpy(), np.asarray(want.n_scanned)
+    )
+    _assert_scan_close(got.rough.numpy(), want.rough)
+
+
+def test_search_rough_scan_matches_jnp_scan_at_960d():
+    """The GIST width (dim 960 padded to 1024, bits 4, spill 0.2): the
+    port's stage-1..3 output equals the JAX CPU path's slot for slot. The
+    twin's fp32 bmm stays exact: |dot| <= 15 * 15 * 1024 < 2^24."""
+    base, queries, centers, p = gist_like_corpus()
+    jidx = rq.build_index(
+        base, centers, key=jax.random.key(0), orthogonal=p, bits=4,
+        spill=0.2, balance=1.5,
+    )
+    params_j = rq.SearchParams(probe=8, topk=100, rerank=150, approx_select=False)
+    want = jsearch.rough_scan(jidx, jnp.asarray(queries), params_j)
+    got = tsearch.rough_scan(
+        port_index_from_jax(jidx), torch.from_numpy(queries),
+        rt.SearchParams(probe=8, topk=100, rerank=150),
     )
     np.testing.assert_array_equal(got.starts.numpy(), np.asarray(want.starts))
     np.testing.assert_array_equal(

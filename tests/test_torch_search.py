@@ -26,7 +26,11 @@ from bench import make_dataset
 from conftest import brute_force_topk
 from rabitq_tpu_torch.index.search import SearchStats
 from rabitq_tpu_torch.metrics import METRICS, record_search_stats
-from torch_parity import port_index_from_jax, random_orthogonal
+from torch_parity import (
+    gist_like_corpus,
+    port_index_from_jax,
+    random_orthogonal,
+)
 
 # The package exports a ``search`` function that shadows the module name.
 jsearch = importlib.import_module("rabitq_tpu.index.search")
@@ -118,6 +122,31 @@ def test_port_build_and_search_match_jax(corpus):
     assert abs(_recall(truth, it.numpy()) - _recall(truth, np.asarray(ij))) <= 0.005
 
 
+def test_port_build_and_search_match_jax_at_960d():
+    """The GIST width at its topk 100 with rerank 150 < 2 * topk: the dedup
+    window is min(2 * topk, R) = 150 in both packages. Same centroids and
+    rotation; JAX ranks clusters in full precision and selects exactly."""
+    base, queries, centers, p = gist_like_corpus()
+    kw = dict(orthogonal=p, bits=4, spill=0.2, balance=1.5)
+    jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
+    pidx = rt.build_index(base, centers, **kw)
+    dj, ij = rq.search(
+        jidx, jnp.asarray(queries),
+        rq.SearchParams(probe=8, topk=100, rerank=150, select_mode="exact",
+                        rank_precision="highest"),
+    )
+    dt, it = rt.search(
+        pidx, torch.from_numpy(queries),
+        rt.SearchParams(probe=8, topk=100, rerank=150),
+    )
+    assert dt.shape == it.shape == (queries.shape[0], 100)
+    _assert_results_match(dt, it, dj, ij)
+    truth = brute_force_topk(base, queries, 100)
+    recall = [rt.calculate_recall(t, i, 100) for t, i in zip(truth, it.numpy())]
+    recall_j = [rt.calculate_recall(t, i, 100) for t, i in zip(truth, np.asarray(ij))]
+    assert abs(np.mean(recall) - np.mean(recall_j)) <= 0.005
+
+
 def test_kmeans_build_search_many_end_to_end(corpus):
     base, queries, truth = corpus
     c = rt.kmeans(base, 32, iters=10)
@@ -192,7 +221,8 @@ def _env():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, rabitq_tpu_torch, rabitq_tpu_torch.index.search, "
-        "rabitq_tpu_torch.index.build, rabitq_tpu_torch.ops._cuda; "
+        "rabitq_tpu_torch.index.build, rabitq_tpu_torch.ops._cuda, "
+        "rabitq_tpu_torch.tools.int4probe; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rabitq_tpu' or m.startswith('rabitq_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -216,6 +246,8 @@ def test_chip_smoke_fails_fast_without_a_gpu():
 
 
 def test_chip_smoke_dataset_is_bench_dataset():
+    """Also at the GIST width with the noise drawn in row chunks (the last
+    one ragged): bench.make_dataset's numbers exactly."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
 
@@ -224,3 +256,10 @@ def test_chip_smoke_dataset_is_bench_dataset():
         make_dataset(500, 128, 16, 7, seed=0),
     ):
         np.testing.assert_array_equal(a, b)
+    want = make_dataset(700, 960, 16, 9, seed=3)
+    for chunk_rows in (64, 1000):
+        got = chip_smoke.make_dataset(700, 960, 16, 9, seed=3,
+                                      chunk_rows=chunk_rows)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)

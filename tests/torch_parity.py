@@ -32,3 +32,16 @@ def random_orthogonal(rng, dim):
     """A numpy rotation both packages can be handed as ``orthogonal=``."""
     q, r = np.linalg.qr(rng.standard_normal((dim, dim)))
     return (q * np.sign(np.diagonal(r))[None, :]).astype(np.float32)
+
+
+def gist_like_corpus(seed=7, n=3000, nq=16, k=32):
+    """A small 960-d corpus from the bench generator with k jittered
+    centroids (no row equals its centroid: the JAX build gives such a row
+    NaN factors at bits > 1) and a 1024-d rotation for both packages."""
+    from bench import make_dataset
+
+    base, queries = make_dataset(n, 960, 64, nq, seed=seed)
+    rng = np.random.default_rng(seed)
+    pick = base[rng.choice(n, k, replace=False)]
+    centers = pick + 0.01 * rng.standard_normal(pick.shape).astype(np.float32)
+    return base, queries, centers, random_orthogonal(rng, 1024)
