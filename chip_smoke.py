@@ -10,9 +10,14 @@ then non-zero and no result line is printed):
   2. [build]  nvcc compiles the three kernel sources of
      rabitq_tpu_torch/csrc/ for sm_90a at once (time, ptxas usage);
   3. [kernel] each kernel against its plain PyTorch twin on the card, both
-     timed with CUDA events:
-       rough_scan at the sift shape (D=128, span=384, S=2048*28) and the
-       gist shape (D=1024, span=512, S=1024*80), bit-equal;
+     timed with CUDA events, beside the kernel's bound:
+       rough_scan, bit-equal, at the sift shape (D=128, span=384,
+       S=2048*28) and the gist shape (D=1024, span=384, S=1024*80), each
+       on random operands (every task at its own random start, with edge
+       cases) and on cluster-structured ones (4097 clusters laid end to
+       end, [B, probe] distinct clusters a query drawn with skew); five
+       checked calls profiled, splitting their device time into the
+       kernel and its grouping glue;
        gather_l2 at the gist shape (N=1.2M, D=1024, B=1024, R=150) and
        the sift shape (D=128, B=2048, R=32), with duplicate positions and
        row N-1, to rtol 1e-5 and atol 1e-5 * max|out|;
@@ -32,7 +37,12 @@ then non-zero and no result line is printed):
      calls with 4 launches of each search kernel, and every returned
      distance equal to its id's exact distance. Slots without a distinct
      id (a spilled build can index an id twice) are counted and scored
-     as misses. One batch of each path is profiled.
+     as misses.
+  At each probe of both paths one batch is profiled: the rough-scan
+  stage's device time (the kernel and the grouping glue launched in its
+  wrapper) beside the bound of that batch's operands (distinct probed
+  rows), and the groups per cluster. At the checked probe one batch runs under
+  torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run.
 
 Then a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and last {"ok": true, "device": {...}}. Without a CUDA device the
@@ -63,8 +73,15 @@ GIST = dict(n=1_000_000, dim=960, n_centers=1024, nq=4096, rerank=150,
 GIST_PROBES, GIST_CHECK_PROBE = (48, 64, 80, 96), 80
 K, TRAIN_CAP, KMEANS_ITERS = 4096, 260_000, 15
 MIN_RECALL = 0.93
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
+INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core operations
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot")
+# Checked scan calls profiled a shape, and the record_function label that
+# marks the scan wrapper's call in a profiled search batch.
+SCAN_PROFILED_CALLS = 5
+SCAN_STAGE = "chip_smoke: rough_scan stage"
+SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 
 
 def log(msg: str) -> None:
@@ -114,10 +131,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def scan_operands(dev, n_rows, s, span, dim, seed=0, bits=4):
-    """Random kernel operands (codes on the bits-bit grid), with edge cases:
-    size 0, size == span, and clusters ending at the last row."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
+def _scan_values(gen, dev, n_rows, s, dim, bits):
+    """Random codes (on the bits-bit grid) and factors of n_rows rows, and
+    query values and scalars of s tasks."""
     m = (1 << bits) - 1
 
     def randint(hi, shape):
@@ -126,17 +142,119 @@ def scan_operands(dev, n_rows, s, span, dim, seed=0, bits=4):
     codes = (2 * randint(m + 1, (n_rows, dim)) - m).to(torch.int8)
     factors = torch.randn((n_rows, 4), generator=gen, device=dev)
     factors[:, 3] = factors[:, 3].abs()
-    starts = randint(n_rows - span + 1, (s,))
-    sizes = randint(span + 1, (s,))
-    sizes[0], sizes[1] = 0, span
-    starts[2], sizes[2] = n_rows - span, span
-    starts[3], sizes[3] = n_rows - 1, 1
     qvals = randint(16, (s, dim)).to(torch.int8)
     scal = torch.randn((s, 4), generator=gen, device=dev)
     scal[:, 1] = scal[:, 1].abs() + 0.01
     scal[:, 2] = qvals.sum(1, dtype=torch.int32).float()
     scal[:, 3] = scal[:, 3].abs()
+    return codes, factors, qvals, scal
+
+
+def scan_operands(dev, n_rows, s, span, dim, seed=0, bits=4):
+    """Random kernel operands, every task at a random start (so no two
+    tasks share a window), with edge cases: size 0, size == span, and
+    clusters ending at the last row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.randint(0, n_rows - span + 1, (s,), generator=gen,
+                           device=dev)
+    sizes = torch.randint(0, span + 1, (s,), generator=gen, device=dev)
+    sizes[0], sizes[1] = 0, span
+    starts[2], sizes[2] = n_rows - span, span
+    starts[3], sizes[3] = n_rows - 1, 1
+    codes, factors, qvals, scal = _scan_values(gen, dev, n_rows, s, dim, bits)
     return (codes, factors, starts.int(), sizes.int(), qvals, scal)
+
+
+def cluster_scan_operands(dev, n_clusters, b, probe, span, dim, seed=0,
+                          bits=4, skew=0.5):
+    """Kernel operands as search makes them: n_clusters clusters of random
+    sizes in [span/2, span] laid end to end (one in 97 empty, so that it
+    shares its start with its successor; the last one full, ending at row
+    N-1), and for each of b queries ``probe`` distinct clusters drawn with
+    weights (rank + 1)^-skew over a random ranking, so a few clusters are
+    probed by many queries. Task 0 probes the last cluster."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes = torch.randint(span // 2, span + 1, (n_clusters,), generator=gen,
+                          device=dev)
+    sizes[::97] = 0
+    sizes[-1] = span
+    offsets = torch.zeros(n_clusters + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(sizes, 0)
+    rank = torch.randperm(n_clusters, generator=gen, device=dev)
+    w = (rank + 1.0) ** -skew
+    cids = torch.multinomial(w.expand(b, -1), probe, replacement=False,
+                             generator=gen)
+    cids[0, 0] = n_clusters - 1
+    cids = cids.reshape(-1)
+    starts = offsets[cids]
+    t_sizes = offsets[cids + 1] - starts
+    n_rows = int(offsets[-1])
+    codes, factors, qvals, scal = _scan_values(gen, dev, n_rows, b * probe,
+                                               dim, bits)
+    return (codes, factors, starts.int(), t_sizes.int(), qvals, scal)
+
+
+def scan_bound(codes, starts, sizes, span):
+    """The least time of one scan on these operands: each probed row's code
+    and factors read once (the union of the tasks' windows), each task's
+    query values, scalars, start and size read once, the [S, span] f32
+    output written once; against 2 * D int8 operations per scanned slot.
+    Returns (bound ms, "bytes" or "operations", distinct rows, GB)."""
+    n, dim = codes.shape
+    s = starts.shape[0]
+    sz = sizes.clamp(0, span).long()
+    diff = torch.zeros(n + 1, dtype=torch.int32, device=codes.device)
+    one = torch.ones(s, dtype=torch.int32, device=codes.device)
+    diff.index_add_(0, starts.long(), one)
+    diff.index_add_(0, starts.long() + sz, -one)
+    rows = int((torch.cumsum(diff, 0)[:n] > 0).sum())
+    nbytes = rows * (dim + 16) + s * (dim + 16 + 8) + s * span * 4
+    ops = 2 * dim * int(sz.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, rows, nbytes / 1e9
+
+
+def groups_per_cluster(codes, starts, sizes, span):
+    """(max, mean) groups per window of the kernel's grouping: the groups
+    of ``group_tasks`` counted by the (start, clamped size) key of their
+    first task."""
+    from rabitq_tpu_torch.ops.scan_kernel import group_tasks
+
+    order, first = group_tasks(starts, sizes, codes.shape[0], span)
+    n_groups = int((first < starts.shape[0]).sum())
+    lead = order[first[:n_groups].long()]
+    key = (starts[lead].long() << 32) | sizes[lead].clamp(0, span).long()
+    _, counts = torch.unique(key, return_counts=True)
+    return int(counts.max()), float(counts.float().mean())
+
+
+def device_ops(prof):
+    """(name, self device ms, count) of every device-side event of a
+    profile. A CPU op such as aten::topk also reports the device time of
+    the kernels it launched, and a record_function label its span on the
+    device, so both are left out."""
+    return [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0 and e.key != SCAN_STAGE
+    ]
+
+
+def split_scan_profile(prof, calls):
+    """(kernel ms, glue ms) per call of a profile that holds ``calls``
+    scan wrapper calls and nothing else. Every device event must appear a
+    multiple of ``calls`` times, the scan kernel exactly ``calls``
+    times: a profile that lost records fails instead of reading low."""
+    ops = device_ops(prof)
+    launched = [c for k, _, c in ops if SCAN_KERNEL in k]
+    if launched != [calls] or any(c % calls for _, _, c in ops):
+        raise AssertionError(f"profile of {calls} scan calls holds "
+                             f"{[(k[:40], c) for k, _, c in ops]}")
+    kernel = sum(t for k, t, _ in ops if SCAN_KERNEL in k)
+    glue = sum(t for k, t, _ in ops if SCAN_KERNEL not in k)
+    return kernel / calls, glue / calls
 
 
 def gather_operands(dev, n, dim, b, r, seed=0):
@@ -192,30 +310,102 @@ def run_captured(fn):
     }
 
 
+def stage_kernels(event):
+    """The device kernels launched under a profiled CPU event, its
+    children's included, as (name, us)."""
+    ks = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        ks += stage_kernels(child)
+    return ks
+
+
 def profile_batch(rt, index, q, params, label, smi):
-    """Where one batch's device time goes (torch.profiler, CUPTI)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where one batch's device time goes (torch.profiler, CUPTI). The
+    scan wrapper's call runs inside a record_function range, so the
+    kernels it launches are found by their CPU parents. Returns (kernel
+    ms, glue ms) of the rough-scan stage in that batch: rough_scan_kernel
+    and the other kernels launched in the wrapper (the grouping glue)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    wrapper = tsearch.cuda_rough_scan
+
+    def staged(*args):
+        with record_function(SCAN_STAGE):
+            return wrapper(*args)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rt.search(index, q, params)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only: a CPU op such as aten::topk also reports the
-    # device time of the kernels it launched.
-    dev_ops = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    ]
+    tsearch.cuda_rough_scan = staged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt.search(index, q, params)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tsearch.cuda_rough_scan = wrapper
+    dev_ops = device_ops(prof)
     busy_ms = sum(t for _, t, _ in dev_ops)
     top = sorted(dev_ops, key=lambda r: -r[1])[:8]
+    host_ops = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CPU),
+        key=lambda r: -r[1])[:6]
     log(f"[profile {label}] one batch of {q.shape[0]}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); top: "
         + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in top)
+        + "; host (self CPU, under the profiler): "
+        + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in host_ops)
         + f" [{smi}]")
+    stages = [e for e in prof.events() if e.name == SCAN_STAGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    scan = [(t, c) for k, t, c in dev_ops if SCAN_KERNEL in k]
+    if len(stages) != 1 or len(scan) != 1 or scan[0][1] != 1:
+        raise AssertionError(f"profiled batch: {len(stages)} scan stages, "
+                             f"scan kernel launches {scan}")
+    glue = sum(t for k, t in stage_kernels(stages[0]) if SCAN_KERNEL not in k)
+    if glue <= 0:
+        raise AssertionError("profiled batch: no glue kernel under the stage")
+    return scan[0][0], glue / 1e3
+
+
+def scan_in_search(rt, index, q, params):
+    """The rough-scan operands of one search batch, captured at the
+    wrapper: their bound, distinct rows and groups per cluster."""
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    wrapper = tsearch.cuda_rough_scan
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        return wrapper(*args)
+
+    tsearch.cuda_rough_scan = capture
+    try:
+        rt.search(index, q, params)
+    finally:
+        tsearch.cuda_rough_scan = wrapper
+    codes, _, starts, sizes, _, _, span = seen[0]
+    bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span)
+    g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, rows=rows, gb=gb,
+                groups_max=g_max, groups_mean=g_mean, tasks=starts.shape[0])
+
+
+def check_no_host_sync(rt, index, q, params, label):
+    """One search batch under torch.cuda.set_sync_debug_mode("error"): any
+    op that synchronizes with the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rt.search(index, q, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[{label} sync] one search batch ran under sync debug mode "
+        f"'error': no host sync")
 
 
 def build_kernels():
@@ -232,31 +422,63 @@ def build_kernels():
     log(f"[build] flags {' '.join(_cuda.NVCC_FLAGS)}")
 
 
-def check_rough_scan(dev, smi, n_rows, s, span, dim, twin_iters):
+def check_rough_scan(smi, label, ops, span, twin_iters, edges=False):
+    """The scan kernel against its twin on ``ops``. SCAN_PROFILED_CALLS
+    wrapper calls run under the profiler and each output must equal the
+    twin bit for bit (and, for scan_operands, the edge-case tasks 0-3 be
+    right); their profile splits the device time into the kernel and the
+    grouping glue. Then the same call and the twin are timed by CUDA
+    events, beside the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
     from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
 
-    ops = scan_operands(dev, n_rows, s, span, dim)
-    got = cuda_rough_scan(*ops, span)
+    codes, _, starts, sizes = ops[:4]
+    n_rows, dim = codes.shape
+    s = starts.shape[0]
     want = rough_scan_reference(*ops, span)
+    cuda_rough_scan(*ops, span)  # warm-up: launch attribute, occupancy
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [cuda_rough_scan(*ops, span)
+                for _ in range(SCAN_PROFILED_CALLS)]
+        torch.cuda.synchronize()
+    kernel_ms, glue_ms = split_scan_profile(prof, SCAN_PROFILED_CALLS)
     fin = torch.isfinite(want)
-    same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
-    max_abs_err = float((got[fin] - want[fin]).abs().max())
-    if not (same_inf and torch.equal(got, want)):
-        raise AssertionError(
-            f"rough_scan kernel != twin at D={dim}: same +inf slots "
-            f"{same_inf}, max |diff| {max_abs_err}"
-        )
-    if not (torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
-            and torch.isfinite(got[2]).all()):
-        raise AssertionError("edge cases: size 0 / size == span slots wrong")
-    del got, want, fin
-    kernel_ms = cuda_ms(lambda: cuda_rough_scan(*ops, span), 20)
+    max_abs_err = 0.0
+    for got in outs:
+        same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
+        err = float((got[fin] - want[fin]).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        if not (same_inf and torch.equal(got, want)):
+            raise AssertionError(
+                f"rough_scan kernel != twin, {label} D={dim}: same +inf "
+                f"slots {same_inf}, max |diff| {err}"
+            )
+        if edges and not (
+            torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
+            and torch.isfinite(got[2]).all()
+        ):
+            raise AssertionError("edge cases: size 0 / size == span slots "
+                                 "wrong")
+    del outs, want, fin
+    call_ms = cuda_ms(lambda: cuda_rough_scan(*ops, span), 20)
     twin_ms = cuda_ms(lambda: rough_scan_reference(*ops, span), twin_iters)
-    log(f"[kernel rough_scan] S={s} span={span} D={dim} N={n_rows}: "
-        f"bit-equal to twin (max |diff| {max_abs_err}, +inf slots equal); "
-        f"kernel {kernel_ms:.4f} ms, twin {twin_ms:.4f} ms per call [{smi}]")
-    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=twin_ms)
+    bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span)
+    g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
+    log(f"[kernel rough_scan {label}] S={s} span={span} D={dim} N={n_rows}: "
+        f"{SCAN_PROFILED_CALLS} calls bit-equal to twin (max |diff| "
+        f"{max_abs_err}, +inf slots equal); in them kernel {kernel_ms:.4f} "
+        f"ms + grouping glue {glue_ms:.4f} ms of device time (profile); "
+        f"call {call_ms:.4f} ms, twin {twin_ms:.4f} ms (CUDA events); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({rows} distinct rows, {gb:.4f} "
+        f"GB): call at {100 * bound_ms / call_ms:.1f}%, kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of bound; groups per cluster "
+        f"max {g_max} mean {g_mean:.2f} [{smi}]")
+    return dict(max_abs_err=max_abs_err, ms=call_ms, plain_ms=twin_ms,
+                kernel_ms=kernel_ms, glue_ms=glue_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def check_gather_l2(dev, smi, n, dim, b, r):
@@ -274,12 +496,17 @@ def check_gather_l2(dev, smi, n, dim, b, r):
     )
     twin_ms = cuda_ms(lambda: gather_l2_reference(base, pos, q), 3)
     nbytes = b * r * (dim * 4 + 8 + 4) + b * dim * 4
-    share = nbytes / (kernel_ms * 1e-3) / HBM_BYTES_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * b * r * dim / FP32_FLOPS  # subtract, multiply, add
+    bound_ms = 1e3 * max(t_bytes, t_ops)
     log(f"[kernel gather_l2] N={n} D={dim} B={b} R={r}: within rtol 1e-5 / "
         f"atol 1e-5*max of twin (max |diff| {err:.3g}); kernel "
         f"{kernel_ms:.4f} ms, twin {twin_ms:.4f} ms per call; reads+writes "
-        f"{nbytes / 1e9:.4f} GB = {100 * share:.1f}% of 3.35 TB/s [{smi}]")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=twin_ms)
+        f"{nbytes / 1e9:.4f} GB, bound {bound_ms:.4f} ms by bytes, kernel "
+        f"at {100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=twin_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def int4_phase(dev, smi):
@@ -319,7 +546,13 @@ def int4_phase(dev, smi):
             ms = cuda_ms(lambda: cuda_int4_dot(a, b, staged=staged), 20)
             parts.append(f"{name} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
             if label == "window":
-                res[name].update(ms=ms, plain_ms=twin_ms)
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = 2 * m * n * k / INT8_OPS_PER_S
+                res[name].update(
+                    ms=ms, plain_ms=twin_ms,
+                    bound_ms=1e3 * max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                )
         log(f"[int4 {label}] [{m}x{k}] . [{n}x{k}]^T packed: exact; operands "
             f"{(m + n) * k / 2e6:.3f} MB packed ({(m + n) * k / 1e6:.3f} MB "
             f"as int8), {nbytes / 1e6:.3f} MB read+written: "
@@ -329,9 +562,11 @@ def int4_phase(dev, smi):
 
 def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
     """Ground truth, k-means, build and search_many of one configuration
-    at each probe; checks the results at ``check_probe`` and returns
-    (index, params, queries, flat queries, ids, dists, launch counts)
-    of that probe's run."""
+    at each probe, with one batch profiled and its rough-scan operands
+    measured against their bound; checks the results at ``check_probe``
+    (and that a batch makes no host sync) and returns (index, params,
+    queries, flat queries, ids, dists, launch counts, scan in search) of
+    that probe's run."""
     n, dim, nq, topk, batch = (cfg[f] for f in ("n", "dim", "nq", "topk",
                                                 "batch"))
     t0 = time.perf_counter()
@@ -389,14 +624,19 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
         ev1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
 
+        enqueue = []
+
         def run():
             ev0.record()
+            t_enq = time.perf_counter()
             out = rt.search_many(index, qd, params)
+            enqueue.append(time.perf_counter() - t_enq)
             ev1.record()
             return out
 
         (dists, ids), counts = run_captured(run)
         search_s = time.perf_counter() - t0
+        enqueue_ms = 1e3 * enqueue[0] / nb
         device_ms = ev0.elapsed_time(ev1)
         rt.METRICS.reset()
         for q in qd:  # counters (untimed)
@@ -410,15 +650,29 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
         hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
         recall = float(hits.float().mean() / topk)
         no_id = int((ids < 0).sum())
+        scan = scan_in_search(rt, index, qd[1], params)
+        scan["kernel_ms"], scan["glue_ms"] = profile_batch(
+            rt, index, qd[1], params, f"{label} probe {probe}", smi)
+        scan["stage_ms"] = scan["kernel_ms"] + scan["glue_ms"]
         log(f"[{label} search] {nb}x{batch} queries probe={probe} "
             f"rerank={cfg['rerank']} topk={topk}: {search_s:.4f}s wall, "
             f"{device_ms:.3f} ms device (CUDA events, "
-            f"{device_ms / nb:.3f} ms/batch), QPS {nb * batch / search_s:.1f}, "
+            f"{device_ms / nb:.3f} ms/batch; host enqueue {enqueue_ms:.3f} "
+            f"ms/batch), QPS {nb * batch / search_s:.1f}, "
             f"recall@{topk} {recall:.4f}, slots without an id {no_id}, "
             f"peak mem {peak_gb:.3f} GB, {rt.METRICS.to_str()}, "
-            f"search_many: {counts} [{smi}]")
+            f"search_many: {counts}; rough_scan stage in one batch "
+            f"{scan['stage_ms']:.4f} ms = kernel {scan['kernel_ms']:.4f} ms "
+            f"+ grouping glue {scan['glue_ms']:.4f} ms (profile) vs bound "
+            f"{scan['bound_ms']:.4f} ms by {scan['bound_by']} ({scan['rows']} "
+            f"distinct probed rows, {scan['gb']:.4f} GB; stage at "
+            f"{100 * scan['bound_ms'] / scan['stage_ms']:.1f}%, kernel at "
+            f"{100 * scan['bound_ms'] / scan['kernel_ms']:.1f}% of bound), "
+            f"{scan['tasks']} tasks, groups per cluster max "
+            f"{scan['groups_max']} mean {scan['groups_mean']:.2f} [{smi}]")
         if probe != check_probe:
             continue
+        check_no_host_sync(rt, index, qd[1], params, label)
 
         # Checks on what came out.
         xb = torch.from_numpy(base).to(dev)
@@ -450,7 +704,7 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
             raise AssertionError(
                 f"search_many of {nb} batches at probe {probe}: {counts}"
             )
-        checked = (index, params, qd, flat_q, ids, dists, counts)
+        checked = (index, params, qd, flat_q, ids, dists, counts, scan)
         log(f"[{label} check] probe {probe}: shapes, finite distances equal "
             f"to exact, recall, launches ok")
     if checked is None:
@@ -502,8 +756,17 @@ def main() -> int:
     build_kernels()
 
     # 3. Kernels against their twins at the paths' shapes.
-    scan_sift = check_rough_scan(dev, smi, 1_200_000, 2048 * 28, 384, 128, 3)
-    scan_gist = check_rough_scan(dev, smi, 1_200_000, 1024 * 80, 512, 1024, 1)
+    scans = {}
+    for path, dim, b, probe, span, twin_iters in (
+        ("sift", 128, 2048, 28, 384, 3), ("gist", 1024, 1024, 80, 384, 1),
+    ):
+        ops = scan_operands(dev, 1_200_000, b * probe, span, dim)
+        scans[f"{path} random"] = check_rough_scan(
+            smi, f"{path} random", ops, span, twin_iters, edges=True)
+        ops = cluster_scan_operands(dev, K + 1, b, probe, span, dim)
+        scans[f"{path} clusters"] = check_rough_scan(
+            smi, f"{path} clusters", ops, span, twin_iters)
+        del ops
     gather_gist = check_gather_l2(dev, smi, 1_200_000, 1024, 1024, 150)
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
     torch.cuda.empty_cache()
@@ -512,22 +775,18 @@ def main() -> int:
     int4 = int4_phase(dev, smi)
 
     # 5. The sift main path.
-    index, params, qd, flat_q, ids, dists, sift_counts = search_path(
-        rt, dev, smi, "sift", SIFT, (SIFT["probe"],), SIFT["probe"],
-        MIN_RECALL,
-    )
+    index, params, qd, flat_q, ids, dists, sift_counts, sift_scan = (
+        search_path(rt, dev, smi, "sift", SIFT, (SIFT["probe"],),
+                    SIFT["probe"], MIN_RECALL))
     sift_cpu_agreement(rt, index, params, flat_q, ids, dists, SIFT["topk"])
-    profile_batch(rt, index, qd[1], params, "sift", smi)
     del index, qd, flat_q, ids, dists
     gc.collect()
     torch.cuda.empty_cache()
 
     # 6. The gist path.
-    index, params, qd, _, _, _, gist_counts = search_path(
+    _, _, _, _, _, _, gist_counts, gist_scan = search_path(
         rt, dev, smi, "gist", GIST, GIST_PROBES, GIST_CHECK_PROBE, MIN_RECALL,
     )
-    profile_batch(rt, index, qd[1], params, "gist", smi)
-    del index, qd
 
     def launches(name):
         return {"launches": sift_counts[name] + gist_counts[name],
@@ -539,25 +798,41 @@ def main() -> int:
          "source": "rabitq_tpu_torch/csrc/rough_scan.cu",
          "replaces": "rabitq_tpu/ops/scan_kernel.py:621",
          **launches("rough_scan"),
-         "max_abs_err": max(scan_sift["max_abs_err"], scan_gist["max_abs_err"]),
-         "ms": scan_sift["ms"], "plain_ms": scan_sift["plain_ms"],
-         "ms_gist_shape": scan_gist["ms"],
-         "plain_ms_gist_shape": scan_gist["plain_ms"]},
+         "max_abs_err": max(r["max_abs_err"] for r in scans.values()),
+         **{key: scans["sift clusters"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "operands": "sift clusters",
+         "by_operands": {
+             label: {key: r[key] for key in ("ms", "kernel_ms", "glue_ms",
+                                             "plain_ms", "bound_ms")}
+             for label, r in scans.items()},
+         "in_search": {
+             path: {key: scan[key] for key in ("stage_ms", "kernel_ms",
+                                               "glue_ms", "bound_ms")}
+             for path, scan in (("sift", sift_scan),
+                                (f"gist probe {GIST_CHECK_PROBE}",
+                                 gist_scan))}},
         {"name": "gather_l2", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/gather_l2.cu",
          "replaces": "rabitq_tpu/ops/rerank_kernel.py:103",
          **launches("gather_l2"),
          "max_abs_err": max(gather_gist["max_abs_err"],
                             gather_sift["max_abs_err"]),
-         "ms": gather_gist["ms"], "plain_ms": gather_gist["plain_ms"],
+         **{key: gather_gist[key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
          "ms_sift_shape": gather_sift["ms"],
-         "plain_ms_sift_shape": gather_sift["plain_ms"]},
+         "plain_ms_sift_shape": gather_sift["plain_ms"],
+         "bound_ms_sift_shape": gather_sift["bound_ms"]},
         {"name": "int4_dot_direct", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
-         "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"]},
+         "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"],
+         "library_ms": None},
         {"name": "int4_dot_staged", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
-         "replaces": "tools/int4probe.py:84", **int4["int4_dot_staged"]},
+         "replaces": "tools/int4probe.py:84", **int4["int4_dot_staged"],
+         "library_ms": None},
     ]}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)

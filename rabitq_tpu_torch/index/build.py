@@ -28,7 +28,12 @@ import torch
 from rabitq_tpu_torch.consts import DEFAULT_X_DOT_PRODUCT, EPSILON, LANES
 from rabitq_tpu_torch.index.index import RaBitQIndex
 from rabitq_tpu_torch.ops import gen_random_orthogonal, pairwise_l2sq, rotate
-from rabitq_tpu_torch.utils import normalize_rows, pad_last_dim, round_up
+from rabitq_tpu_torch.utils import (
+    normalize_rows,
+    pad_last_dim,
+    resolve_device,
+    round_up,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -375,7 +380,8 @@ def build_index(
                 query dither; default seed 0 on ``device``.
     orthogonal: [D, D] rotation override (D = d rounded up to 128).
     device:     where the index lives and the build runs; defaults to the
-                generator's device, else the CPU.
+                generator's device, else the centroids' (a tensor), else
+                CUDA (raising without a card).
     metric:     "l2" or "cosine" (rows and centroids are L2-normalized).
     balance:    cap cluster sizes at ``balance * n / k`` by moving the
                 farthest overflow members to their next-nearest centroid.
@@ -398,9 +404,7 @@ def build_index(
     if spill_mode not in ("dist", "soar"):
         raise ValueError(f"unknown spill_mode {spill_mode!r}")
     t_start = time.perf_counter()
-    if device is None:
-        device = generator.device if generator is not None else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, generator, centroids)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     base = np.asarray(base, dtype=np.float32)

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from rabitq_tpu_torch.index.index import RaBitQIndex, dense_to_padded
+from rabitq_tpu_torch.utils import resolve_device
 
 
 def index_from_arrays(
@@ -24,16 +25,18 @@ def index_from_arrays(
     metric: str,
     code_bits: int,
     dedup_ids: bool,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> RaBitQIndex:
     """The JAX index's arrays (numpy, e.g. ``np.asarray(jidx.codes_pm1)``)
-    -> the port's dense cluster-sorted index on ``device``.
+    -> the port's dense cluster-sorted index on ``device`` (default CUDA,
+    raising without a card).
 
     ``codes_pm1`` [n_tiles, 128, D] int8 and ``factors_tiled``
     [n_tiles, 8, 128] f32 are lane-tiled in the aligned padded column
     order; dense row p lives at column ``dense_to_padded(offsets, p)``.
     Every other field is carried across unchanged.
     """
+    device = resolve_device(device)
     offsets = np.asarray(offsets, dtype=np.int32)
     n = int(np.asarray(map_ids).shape[0])
     cols = dense_to_padded(offsets, np.arange(n))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from rabitq_tpu_torch.ops import pairwise_l2sq
+from rabitq_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -120,21 +121,15 @@ def kmeans(
     """Flat Lloyd k-means; returns [k, d] float32 centroids on ``device``.
 
     x: [n, d] numpy array or tensor. ``device`` defaults to x's device (for
-    a tensor), else the generator's, else the CPU; ``generator`` (default:
-    seed 0 on ``device``) drives every random draw. Init: k-means|| on a
+    a tensor), else the generator's, else CUDA (raising without a card);
+    ``generator`` (default: seed 0 on ``device``) drives every random draw. Init: k-means|| on a
     subsample of at most ``init_sample_cap`` rows, or ``init="random"``
     for uniform sampling. Empty clusters keep their previous centroid.
     Stops early when the relative cost improvement drops below ``tol``.
     """
     if init not in ("kmeans++", "random"):
         raise ValueError(f"unknown init {init!r}")
-    if device is None:
-        if isinstance(x, torch.Tensor):
-            device = x.device
-        elif generator is not None:
-            device = generator.device
-        else:
-            device = "cpu"
+    device = resolve_device(device, x, generator)
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x, dtype=np.float32)
     x = torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from rabitq_tpu_torch.utils import resolve_device
+
 
 def gen_random_orthogonal(
     dim: int,
@@ -17,10 +19,9 @@ def gen_random_orthogonal(
 
     The signs of R's diagonal are fixed positive so Q is Haar-distributed
     and deterministic given the generator. ``device`` defaults to the
-    generator's device.
+    generator's device, else CUDA (raising without a card).
     """
-    if device is None:
-        device = generator.device if generator is not None else "cpu"
+    device = resolve_device(device, generator)
     g = torch.randn(
         (dim, dim), generator=generator, device=device, dtype=torch.float32
     )

@@ -12,7 +12,10 @@ are +inf. These are the coordinates of the JAX package's aligned kernel
 path: slot = rank of the row within its cluster.
 
 ``cuda_rough_scan`` runs the hand-written kernel (csrc/rough_scan.cu) on
-CUDA tensors and the twin ``rough_scan_reference`` on CPU tensors.
+CUDA tensors and the twin ``rough_scan_reference`` on CPU tensors. Before
+the launch, ``group_tasks`` groups the tasks that share a cluster (the
+port of the JAX kernel's ``_group_tasks``), so that one window read and
+one int8 tensor-core product serve up to ``QPC`` tasks.
 """
 
 from __future__ import annotations
@@ -27,16 +30,64 @@ from rabitq_tpu_torch.ops import _cuda
 # Bytes of the twin's gathered [chunk, span, D] f32 code window.
 _TWIN_CHUNK_BYTES = 1 << 28
 
+# Tasks per group: the kernel's kQpc (checked when the kernel is loaded),
+# two m16 tiles of the int8 mma. The
+# tensor cores have work to spare (the scan is bound by bytes), so zero
+# query rows in a small group cost nothing measurable, while a larger group
+# re-reads a shared window fewer times than _pick_qpc's 8 or 16 would.
+QPC = 32
+
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point, with its ctypes signature: seven
+    """The built kernel's C entry point, with its ctypes signature: ten
     pointers, n_tasks, dim, span, and the stream (pointers and the stream
-    as c_void_p so ctypes does not cut them to 32 bits)."""
-    fn = _cuda.load("rough_scan").rabitq_rough_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    as c_void_p so ctypes does not cut them to 32 bits). Raises unless the
+    kernel was built for groups of ``QPC`` tasks."""
+    lib = _cuda.load("rough_scan")
+    if lib.rabitq_rough_scan_qpc() != QPC:
+        raise RuntimeError(
+            f"rough_scan kernel built for {lib.rabitq_rough_scan_qpc()} "
+            f"tasks a group, grouping cuts at {QPC}"
+        )
+    fn = lib.rabitq_rough_scan
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def group_tasks(
+    starts: torch.Tensor,
+    sizes: torch.Tensor,
+    n_rows: int,
+    span: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Group the tasks that scan one window, on the tensors' device.
+
+    The key of a task is (start, size clamped to [0, span]): the window
+    the kernel reads. Sizes join the key because an empty cluster shares
+    its start with its successor. Tasks are sorted stably by key and each
+    run of equal keys is cut into groups of at most ``QPC``. Returns
+    ``order`` [S] int64 (task ids in key order) and ``group_first``
+    [S + 1] int32: group g holds ``order[group_first[g]:group_first[g+1]]``
+    and ``group_first`` is S from one past the last group on. Groups
+    follow key order, so a cluster's groups are adjacent. No host sync:
+    sort, searchsorted and cumsum run on the device with static shapes.
+    The key packs into int32 when ``n_rows * (span + 1)`` allows (half
+    the radix-sort passes), else int64.
+    """
+    s = starts.shape[0]
+    dev = starts.device
+    dt = torch.int32 if n_rows * (span + 1) < 2**31 else torch.int64
+    key = starts.to(dt) * (span + 1) + sizes.clamp(0, span).to(dt)
+    key, order = torch.sort(key, stable=True)
+    # Rank of each sorted task within its run of equal keys.
+    rank = torch.arange(s, device=dev) - torch.searchsorted(key, key)
+    gid = torch.cumsum(rank % QPC == 0, 0) - 1
+    group_first = torch.searchsorted(
+        gid, torch.arange(s + 1, device=dev), out_int32=True
+    )
+    return order, group_first
 
 
 def _check(codes, factors, starts, sizes, qvals, scal, span):
@@ -111,7 +162,8 @@ def cuda_rough_scan(
 ) -> torch.Tensor:
     """Rough scan [S, span] f32. CUDA tensors launch the sm_90a kernel;
     CPU tensors take the twin. The caller guarantees
-    ``starts[t] + min(sizes[t], span) <= N`` for every task.
+    ``starts[t] + min(sizes[t], span) <= N`` for every task. On the card
+    D must be a multiple of 32 (the index pads it to a multiple of 128).
 
     ``cuda_rough_scan.launches`` counts kernel launches (not twin calls).
     """
@@ -126,18 +178,22 @@ def cuda_rough_scan(
     s = starts.shape[0]
     if torch.cuda.get_device_capability(codes.device) != (9, 0):
         raise RuntimeError("the rough-scan kernel is built for sm_90a only")
-    if d % 4:
-        raise ValueError(f"dim must be a multiple of 4, got {d}")
+    if d % 32:
+        raise ValueError(f"dim must be a multiple of 32, got {d}")
     args = (codes, factors, starts, sizes, qvals, scal)
     for t in args:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")
     out = torch.empty((s, span), dtype=torch.float32, device=codes.device)
+    if s == 0:
+        return out
+    order, group_first = group_tasks(starts, sizes, n, span)
+    next_group = torch.zeros(1, dtype=torch.int32, device=codes.device)
     launch = _kernel()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            *(t.data_ptr() for t in args),
+            *(t.data_ptr() for t in (*args, order, group_first, next_group)),
             out.data_ptr(),
             s,
             d,
@@ -146,8 +202,7 @@ def cuda_rough_scan(
         )
     if err:
         raise RuntimeError(f"rough_scan kernel launch failed: CUDA error {err}")
-    if s:
-        cuda_rough_scan.launches += 1
+    cuda_rough_scan.launches += 1
     return out
 
 

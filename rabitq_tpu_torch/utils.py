@@ -1,8 +1,30 @@
-"""Shared helpers: padding, normalization, recall (numpy, no torch)."""
+"""Shared helpers: the entry points' device, padding, normalization,
+recall."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def resolve_device(device=None, *hints) -> torch.device:
+    """``device`` if given, else the device of the first hint that is a
+    tensor or a generator, else CUDA. Raises when that is CUDA and no card
+    is present: the entry points run on the card unless asked for the CPU,
+    and never fall back to it."""
+    if device is None:
+        device = next(
+            (h.device for h in hints
+             if isinstance(h, (torch.Tensor, torch.Generator))),
+            "cuda",
+        )
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' (or CPU tensors or a CPU "
+            "generator) to run on the CPU"
+        )
+    return device
 
 
 def round_up(x: int, m: int) -> int:

@@ -66,7 +66,7 @@ def test_build_matches_jax(bits, spill, metric, skewed):
     p = random_orthogonal(rng, 128)
     kw = dict(orthogonal=p, bits=bits, spill=spill, metric=metric, balance=1.5)
     jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
-    got = rt.build_index(base, centers, **kw)
+    got = rt.build_index(base, centers, device="cpu", **kw)
     _assert_build_matches(got, port_index_from_jax(jidx), p, spill)
     if skewed:
         assert got.k > centers.shape[0]  # the split happened in both
@@ -80,7 +80,7 @@ def test_build_matches_jax_at_960d():
     base, _, centers, p = gist_like_corpus()
     kw = dict(orthogonal=p, bits=4, spill=0.2, balance=1.5)
     jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
-    got = rt.build_index(base, centers, **kw)
+    got = rt.build_index(base, centers, device="cpu", **kw)
     want = port_index_from_jax(jidx)
     assert (got.dim, got.dim_orig) == (1024, 960)
     np.testing.assert_array_equal(got.offsets.numpy(), want.offsets.numpy())
@@ -140,7 +140,7 @@ def test_codes_lie_on_the_grid():
     rng = np.random.default_rng(3)
     base, centers = make_clustered_dataset(rng, n=800, dim=64, k=8)
     for bits in (1, 2, 4):
-        idx = rt.build_index(base, centers, bits=bits)
+        idx = rt.build_index(base, centers, bits=bits, device="cpu")
         v = idx.codes.numpy().astype(np.int64)
         m = (1 << bits) - 1
         assert ((v + m) % 2 == 0).all() and np.abs(v).max() <= m
@@ -184,11 +184,11 @@ def test_numpy_helpers_match_jax():
 def test_build_rejects_bad_arguments():
     base = np.zeros((10, 8), np.float32)
     with pytest.raises(ValueError):
-        rt.build_index(base, base[:2], bits=8)
+        rt.build_index(base, base[:2], bits=8, device="cpu")
     with pytest.raises(ValueError):
-        rt.build_index(base, base[:2], metric="ip")
+        rt.build_index(base, base[:2], metric="ip", device="cpu")
     with pytest.raises(ValueError):
-        rt.build_index(base, base[:2], orthogonal=np.eye(8))
+        rt.build_index(base, base[:2], orthogonal=np.eye(8), device="cpu")
 
 
 def _cost(x, c):
@@ -207,9 +207,45 @@ def test_kmeans_cost_matches_jax(k, dim):
 
 def test_kmeans_random_init_and_k_clamp():
     x, _ = make_dataset(2000, 32, 64, 1, seed=4)
-    c = rt.kmeans(x, 16, iters=15, init="random")
+    c = rt.kmeans(x, 16, iters=15, init="random", device="cpu")
     cj = jkmeans.kmeans(x, 16, iters=15, init="random", key=jax.random.key(2))
     assert abs(_cost(x, c.numpy()) / _cost(x, cj) - 1.0) <= 0.05
-    assert rt.kmeans(x[:5], 16).shape == (5, 32)
+    assert rt.kmeans(x[:5], 16, device="cpu").shape == (5, 32)
     with pytest.raises(ValueError):
-        rt.kmeans(x, 4, init="kmeans||")
+        rt.kmeans(x, 4, init="kmeans||", device="cpu")
+
+
+_NO_DEVICE_CALLS = {
+    "kmeans": lambda: rt.kmeans(np.zeros((10, 4), np.float32), 2),
+    "build_index": lambda: rt.build_index(
+        np.zeros((10, 8), np.float32), np.zeros((2, 8), np.float32)
+    ),
+    "gen_random_orthogonal": lambda: rt.ops.gen_random_orthogonal(8),
+    "index_from_arrays": lambda: rt.index_from_arrays(
+        codes_pm1=None, factors_tiled=None, offsets=None, map_ids=None,
+        centroids_rot=None, orthogonal=None, rand_bias=None, base=None,
+        dim=8, dim_orig=8, capacity=128, metric="l2", code_bits=1,
+        dedup_ids=False,
+    ),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_NO_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(entry):
+    """Without a device, tensor or generator that names one, an entry point
+    runs on CUDA: on a machine without a card it raises instead of
+    carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default call would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _NO_DEVICE_CALLS[entry]()
+
+
+def test_cpu_hints_keep_the_entry_points_on_the_cpu():
+    """A CPU generator or a CPU tensor names the device."""
+    x = torch.from_numpy(make_dataset(200, 16, 8, 1, seed=5)[0])
+    assert rt.kmeans(x, 4, iters=2).device.type == "cpu"
+    g = torch.Generator().manual_seed(0)
+    assert rt.ops.gen_random_orthogonal(8, g).device.type == "cpu"
+    c = rt.kmeans(x.numpy(), 4, iters=2, generator=g)
+    assert rt.build_index(x.numpy(), c).codes.device.type == "cpu"

@@ -7,12 +7,15 @@ no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 The rough-scan kernel must equal its twin bit for bit (the estimator is
-written in the twin's operation order with explicitly rounded intrinsics),
+written in the twin's operation order with explicitly rounded intrinsics,
+and the int8 tensor-core dot is exact), on random operands and on
+cluster-structured ones whose tasks share windows,
 and so must the int4 kernels (integer arithmetic). The gather-l2 kernel
 sums the same f32 squares as its twin in another order: rtol 1e-5, atol
 1e-5 * max|out|.
 """
 
+import concurrent.futures
 import dataclasses
 
 import numpy as np
@@ -20,7 +23,12 @@ import pytest
 import torch
 
 import rabitq_tpu_torch as rt
-from chip_smoke import assert_gather_close, gather_operands, scan_operands
+from chip_smoke import (
+    assert_gather_close,
+    cluster_scan_operands,
+    gather_operands,
+    scan_operands,
+)
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
     cuda_int4_dot,
@@ -61,6 +69,101 @@ def test_kernel_equals_twin(dev, n, d, span, s, bits):
     assert torch.equal(got, want)
     assert torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
     assert torch.isfinite(got[2]).all() and torch.isfinite(got[3, :1]).all()
+
+
+@pytest.mark.parametrize(
+    "d,n_clusters,b,probe,span",
+    [
+        (128, 40, 64, 6, 128),
+        (96, 300, 128, 16, 200),
+        (128, 4097, 2048, 28, 384),  # the sift path's shapes
+        (1024, 4097, 1024, 80, 384),  # the gist path's shapes
+    ],
+)
+def test_grouped_kernel_equals_twin_on_clusters(dev, d, n_clusters, b, probe,
+                                                span):
+    """Tasks that share windows, with empty clusters beside their
+    successors and the last cluster full and ending at row N-1."""
+    ops = cluster_scan_operands(dev, n_clusters, b, probe, span, d,
+                                seed=d + b)
+    got = cuda_rough_scan(*ops, span)
+    want = rough_scan_reference(*ops, span)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isfinite(got[0]).all()  # the last cluster, size == span
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("s", [1, 16, 17, 32, 33, 2048])
+def test_grouped_kernel_max_sharing(dev, d, s):
+    """Every task probes one window ending at row N-1 (2048 tasks: 64
+    groups of one key); every third task instead probes an empty cluster
+    at the same start."""
+    n, span = 1000, 384
+    ops = list(scan_operands(dev, n, max(s, 4), span, d, seed=s + d))
+    ops[4], ops[5] = ops[4][:s], ops[5][:s]
+    ops[2] = torch.full((s,), n - span, dtype=torch.int32, device=dev)
+    ops[3] = torch.full((s,), span, dtype=torch.int32, device=dev)
+    ops[3][1::3] = 0
+    got = cuda_rough_scan(*ops, span)
+    want = rough_scan_reference(*ops, span)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isfinite(got[0]).all()
+    if s > 1:
+        assert torch.isinf(got[1]).all()
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize(
+    "task,row,k",
+    [(0, 0, 0), (7, 9, 5), (8, 127, 17), (15, 128, 31), (16, 200, 100),
+     (31, 383, 1023), (20, 130, 64), (3, 255, 47)],
+)
+def test_fragment_layout_one_hot(dev, d, task, row, k):
+    """One query value and one code value are non-zero, and the factors and
+    scalars reduce the estimator to the dot: exactly one slot, (task, row),
+    holds 5 * 3 and every other slot 0. A wrong ldmatrix or mma fragment
+    mapping moves or loses it."""
+    s, span = 32, 384
+    k %= d
+    codes = torch.zeros((span, d), dtype=torch.int8, device=dev)
+    codes[row, k] = 3
+    factors = torch.zeros((span, 4), device=dev)
+    factors[:, 0] = 1.0  # ip
+    qvals = torch.zeros((s, d), dtype=torch.int8, device=dev)
+    qvals[task, k] = 5
+    scal = torch.zeros((s, 4), device=dev)
+    scal[:, 1] = 1.0  # delta
+    starts = torch.zeros(s, dtype=torch.int32, device=dev)
+    sizes = torch.full((s,), span, dtype=torch.int32, device=dev)
+    got = cuda_rough_scan(codes, factors, starts, sizes, qvals, scal, span)
+    want = torch.zeros((s, span), device=dev)
+    want[task, row] = 15.0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_kernel_rejects_dim_not_multiple_of_32(dev):
+    ops = scan_operands(dev, 500, 8, 128, 48, seed=3)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_rough_scan(*ops, 128)
+
+
+def test_shared_memory_size_across_threads(dev):
+    """The kernel's shared-memory maximum is one attribute of the device:
+    a thread that launches at D 128 after another thread's D 1024 launch
+    must not leave it too small for that thread's next D 1024 launch."""
+    wide = scan_operands(dev, 2000, 40, 256, 1024, seed=5)
+    narrow = scan_operands(dev, 2000, 40, 256, 128, seed=6)
+    want = rough_scan_reference(*wide, 256)
+    with concurrent.futures.ThreadPoolExecutor(1) as a, \
+            concurrent.futures.ThreadPoolExecutor(1) as b:
+        first = a.submit(cuda_rough_scan, *wide, 256).result()
+        b.submit(cuda_rough_scan, *narrow, 256).result()
+        again = a.submit(cuda_rough_scan, *wide, 256).result()
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(again, want)
 
 
 def test_launch_counter(dev):

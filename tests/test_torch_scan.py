@@ -1,4 +1,5 @@
-"""Parity of the port's rough scan with the JAX package's.
+"""Parity of the port's rough scan with the JAX package's, and the task
+grouping that the CUDA kernel relies on.
 
 The port's CPU path is the kernel's plain twin (rough_scan_reference, which
 ``cuda_rough_scan`` runs for CPU tensors). It is held against
@@ -24,6 +25,7 @@ from rabitq_tpu.index.index import padded_offsets
 from rabitq_tpu.ops import pairwise_l2sq, quantize_query_residuals, rotate
 from rabitq_tpu.ops.scan_kernel import pallas_rough_scan
 from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
+from rabitq_tpu_torch.ops.scan_kernel import QPC, group_tasks
 from reference_model import ref_rough_distance
 from torch_parity import gist_like_corpus, port_index_from_jax
 
@@ -102,6 +104,168 @@ def test_wrapper_rejects_bad_operands(rng):
         cuda_rough_scan(*bad, 128)
     with pytest.raises(ValueError, match="device"):
         cuda_rough_scan(*(t.to("meta") for t in ops), 128)
+
+
+# (starts, sizes) cases: ragged random keys; every task on one cluster
+# (several full groups); an empty cluster sharing its start with its
+# successor; a lone task; no task at all.
+_GROUP_CASES = {
+    "random": ([3, 9, 3, 0, 9, 9, 3, 21, 0, 3], [6, 12, 6, 3, 12, 12, 6, 1, 3, 6]),
+    "one_cluster": ([40] * 100, [77] * 100),
+    "empty_shares_start": ([5, 5, 5, 0, 5, 5, 0], [0, 9, 0, 5, 9, 0, 5]),
+    "one_task": ([7], [2]),
+    "no_tasks": ([], []),
+}
+
+
+def _check_groups(starts, sizes, span=64, n_rows=1000):
+    """The grouping's contract: a partition of the tasks into groups of
+    1..QPC tasks with one (start, size clamped to span) key each, in key
+    order, each run of a key cut into full groups but its last, and no
+    more groups than its bound."""
+    starts = np.asarray(starts, np.int32)
+    s = starts.shape[0]
+    order, first = group_tasks(
+        torch.from_numpy(starts), torch.tensor(sizes, dtype=torch.int32),
+        n_rows, span,
+    )
+    sizes = np.clip(np.asarray(sizes, np.int32), 0, span)
+    order, first = order.numpy(), first.numpy()
+    assert (order.dtype, first.dtype) == (np.int64, np.int32)
+    assert first.shape == (s + 1,) and first[s] == s
+    np.testing.assert_array_equal(np.sort(order), np.arange(s))
+    n_groups = int(np.searchsorted(first, s))  # groups start below s
+    np.testing.assert_array_equal(first[n_groups:], s)
+    keys = []
+    for g in range(n_groups):
+        tasks = order[first[g]:first[g + 1]]
+        assert 1 <= tasks.size <= QPC
+        key = {(starts[t], sizes[t]) for t in tasks}
+        assert len(key) == 1
+        keys.append(key.pop())
+        np.testing.assert_array_equal(tasks, np.sort(tasks))  # stable
+    assert keys == sorted(keys)  # key order: a cluster's groups adjacent
+    for g in range(n_groups - 1):
+        if keys[g] == keys[g + 1]:
+            assert first[g + 1] - first[g] == QPC
+    distinct = len(set(zip(starts.tolist(), sizes.tolist())))
+    assert n_groups <= min(s, distinct + (s - distinct) // QPC)
+    return order, first, n_groups
+
+
+@pytest.mark.parametrize("reps", [1, 3, QPC])
+@pytest.mark.parametrize("case", sorted(_GROUP_CASES))
+def test_group_tasks_partitions_by_key(case, reps):
+    """Each case's tasks repeated ``reps`` times, so that at 3 and QPC
+    runs of one key outgrow a group."""
+    starts, sizes = (v * reps for v in _GROUP_CASES[case])
+    _, first, n_groups = _check_groups(starts, sizes)
+    if case == "one_cluster":
+        assert n_groups == -(-100 * reps // QPC)
+    if case == "no_tasks":
+        assert n_groups == 0 and first.tolist() == [0]
+
+
+def test_group_tasks_property():
+    """Random tasks over a few (start, size) keys, up to 3 * QPC sharing
+    one, in a random order; sizes below 0 and above the span clamp into
+    one key."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=60, deadline=None, database=None)
+    @hypothesis.given(
+        runs=st.lists(
+            st.tuples(st.integers(0, 6), st.integers(-1, 5),
+                      st.integers(1, 3 * QPC)),
+            max_size=6,
+        ),
+        seed=st.integers(0, 2**32 - 1),
+        n_rows=st.sampled_from([100, 2**30]),  # int32 and int64 keys
+    )
+    def check(runs, seed, n_rows):
+        keys = [(10 * a, b) for a, b, c in runs for _ in range(c)]
+        keys = [keys[i] for i in np.random.default_rng(seed).permutation(
+            len(keys))]
+        _check_groups([a for a, _ in keys], [b for _, b in keys], span=3,
+                      n_rows=n_rows)
+
+    check()
+
+
+def _grouped_scan(codes, factors, starts, sizes, qvals, scal, span):
+    """The CUDA kernel's layout in plain torch (tests only): for each group
+    of ``group_tasks``, one read of the window rows [start, start + size)
+    and one integer product against all of the group's query values, the
+    estimator in the twin's order, and each task's slots written by task
+    id; slots [size, span) stay +inf."""
+    s = starts.shape[0]
+    order, first = group_tasks(starts, sizes, codes.shape[0], span)
+    out = torch.full((s, span), torch.inf)
+    for g in range(s):
+        a, b = int(first[g]), int(first[g + 1])
+        if a >= s:
+            break
+        tasks = order[a:b]
+        start = int(starts[tasks[0]])
+        size = max(0, min(int(sizes[tasks[0]]), span))
+        rows = slice(start, start + size)
+        dot = (qvals[tasks].long() @ codes[rows].long().T).float()
+        f = factors[rows]
+        lo, delta, ycd = scal[tasks, 0:1], scal[tasks, 1:2], scal[tasks, 3:4]
+        est = f[None, :, 3] + ycd
+        est = est + lo * f[None, :, 1]
+        est = est + (dot * f[None, :, 0]) * delta
+        est = est - f[None, :, 2] * torch.sqrt(ycd)
+        out[tasks, :size] = est
+    return out
+
+
+def _structured_operands(rng, n_clusters, queries, probe, d, span, bits=4):
+    """Cluster-structured scan operands: random cluster sizes <= span (some
+    empty, the last one full and ending at row N-1), and [queries, probe]
+    distinct clusters per query drawn with skew toward a few."""
+    sizes = rng.integers(0, span + 1, n_clusters)
+    sizes[:: max(1, n_clusters // 5)] = 0
+    sizes[-1] = span
+    w = 1.0 / np.arange(1, n_clusters + 1) ** 1.2
+    cids = np.stack([
+        rng.choice(n_clusters, probe, replace=False, p=w / w.sum())
+        for _ in range(queries)
+    ])
+    cids[0, 0] = n_clusters - 1
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    cids = cids.reshape(-1)
+    return _random_operands(rng, int(offsets[-1]), d, span,
+                            offsets[cids + 1] - offsets[cids], offsets[cids],
+                            bits)
+
+
+@pytest.mark.parametrize(
+    "kind,d,span",
+    [("random", 64, 128), ("random", 128, 256), ("structured", 128, 128),
+     ("structured", 96, 384), ("one_cluster", 64, 128), ("edges", 128, 64)],
+)
+def test_grouped_layout_equals_twin_bitwise(rng, kind, d, span):
+    """The grouped evaluation the kernel performs equals the twin bit for
+    bit: the same slots, the same +inf, the same float operations."""
+    if kind == "random":
+        starts = rng.integers(0, 600 - span, 90)
+        ops = _random_operands(rng, 600, d, span, rng.integers(0, span + 1, 90),
+                               starts)
+    elif kind == "structured":
+        ops = _structured_operands(rng, 40, 24, 6, d, span)
+    elif kind == "one_cluster":  # 70 tasks share one window: 3 groups
+        ops = _random_operands(rng, 300, d, span, [span] * 70, [300 - span] * 70)
+    else:  # size 0 beside its successor, size == span, size > span, N-1
+        n = 200
+        ops = _random_operands(rng, n, d, span, [0, 40, span, span + 9, 1, 0, 40],
+                               [10, 10, 0, 50, n - 1, n - 1, 10])
+    tensors = list(map(torch.from_numpy, ops))
+    got = _grouped_scan(*tensors, span)
+    want = rough_scan_reference(*tensors, span)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got, want)
 
 
 def _scan_inputs(jidx, queries, probe):

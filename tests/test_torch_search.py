@@ -109,7 +109,7 @@ def test_port_build_and_search_match_jax(corpus):
     kw = dict(orthogonal=random_orthogonal(rng, 128), bits=4, spill=0.2,
               balance=1.5)
     jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
-    pidx = rt.build_index(base, centers, **kw)
+    pidx = rt.build_index(base, centers, device="cpu", **kw)
     dj, ij = rq.search(
         jidx, jnp.asarray(queries),
         rq.SearchParams(probe=8, topk=TOPK, rerank=32, select_mode="exact"),
@@ -129,7 +129,7 @@ def test_port_build_and_search_match_jax_at_960d():
     base, queries, centers, p = gist_like_corpus()
     kw = dict(orthogonal=p, bits=4, spill=0.2, balance=1.5)
     jidx = rq.build_index(base, centers, key=jax.random.key(0), **kw)
-    pidx = rt.build_index(base, centers, **kw)
+    pidx = rt.build_index(base, centers, device="cpu", **kw)
     dj, ij = rq.search(
         jidx, jnp.asarray(queries),
         rq.SearchParams(probe=8, topk=100, rerank=150, select_mode="exact",
@@ -149,8 +149,8 @@ def test_port_build_and_search_match_jax_at_960d():
 
 def test_kmeans_build_search_many_end_to_end(corpus):
     base, queries, truth = corpus
-    c = rt.kmeans(base, 32, iters=10)
-    idx = rt.build_index(base, c, bits=4, spill=0.2, balance=1.5)
+    c = rt.kmeans(base, 32, iters=10, device="cpu")
+    idx = rt.build_index(base, c, bits=4, spill=0.2, balance=1.5, device="cpu")
     params = rt.SearchParams(probe=12, topk=TOPK, rerank=32)
     d, ids = rt.search_many(idx, torch.from_numpy(queries).reshape(3, 8, -1), params)
     assert d.shape == ids.shape == (3, 8, TOPK)
@@ -166,7 +166,9 @@ def test_kmeans_build_search_many_end_to_end(corpus):
 def test_unreachable_slots_are_inf_and_minus_one(corpus):
     base, queries, _ = corpus
     rng = np.random.default_rng(3)
-    idx = rt.build_index(base[:300], base[rng.choice(300, 16, replace=False)])
+    idx = rt.build_index(
+        base[:300], base[rng.choice(300, 16, replace=False)], device="cpu"
+    )
     d, ids = rt.search(
         idx, torch.from_numpy(queries[:4]),
         rt.SearchParams(probe=1, topk=50, rerank=50),  # clusters of ~19
@@ -181,7 +183,7 @@ def test_row_at_its_centroid(corpus, bits):
     """A row equal to its centroid (zero residual) gets a valid code and
     finite factors, and a query at that row finds it at distance 0."""
     base, _, _ = corpus
-    idx = rt.build_index(base, base[:16], bits=bits)
+    idx = rt.build_index(base, base[:16], bits=bits, device="cpu")
     assert torch.isfinite(idx.factors).all()
     d, ids = rt.search(
         idx, torch.from_numpy(base[:16]), rt.SearchParams(probe=2, topk=1, rerank=16)
@@ -205,7 +207,7 @@ def test_search_params_cap_probe_and_rerank(corpus):
     """probe beyond k and rerank beyond the scannable rows are capped: the
     results equal those at probe = k and R = every row."""
     base, queries, _ = corpus
-    idx = rt.build_index(base[:500], base[:8])
+    idx = rt.build_index(base[:500], base[:8], device="cpu")
     q = torch.from_numpy(queries[:4])
     d_big, i_big = rt.search(idx, q, rt.SearchParams(probe=50, rerank=10**6))
     d_cap, i_cap = rt.search(idx, q, rt.SearchParams(probe=8, rerank=idx.n))
