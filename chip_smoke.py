@@ -11,13 +11,15 @@ then non-zero and no result line is printed):
      rabitq_tpu_torch/csrc/ for sm_90a at once (time, ptxas usage);
   3. [kernel] each kernel against its plain PyTorch twin on the card, both
      timed with CUDA events, beside the kernel's bound:
-       rough_scan, bit-equal, at the sift shape (D=128, span=384,
-       S=2048*28) and the gist shape (D=1024, span=384, S=1024*80), each
-       on random operands (every task at its own random start, with edge
-       cases) and on cluster-structured ones (4097 clusters laid end to
-       end, [B, probe] distinct clusters a query drawn with skew); five
-       checked calls profiled, splitting their device time into the
-       kernel and its grouping glue;
+       rough_scan, bit-equal, in each of its modes (the lane fold at depth
+       2, search's default, and 1, and the full [S, span] output), at the
+       sift shape (D=128, span=384, S=2048*28) and the gist shape (D=1024,
+       span=384, S=1024*80), each on random operands (every task at its
+       own random start, with edge cases) and on cluster-structured ones
+       (4097 clusters laid end to end, [B, probe] distinct clusters a
+       query drawn with skew); five checked calls profiled, splitting
+       their device time into the kernel and its grouping glue; the bound
+       counts the output the mode writes;
        gather_l2 at the gist shape (N=1.2M, D=1024, B=1024, R=150) and
        the sift shape (D=128, B=2048, R=32), with duplicate positions and
        row N-1, to rtol 1e-5 and atol 1e-5 * max|out|;
@@ -29,7 +31,8 @@ then non-zero and no result line is printed):
      build_index(bits=4, spill=0.2, balance=1.5), search_many at probe 28,
      rerank 32, topk 10, batch 2048; brute-force ground truth on the card;
      recall@10 >= 0.93, every rough_scan call launching both search
-     kernels; 64 queries re-searched on the CPU path must agree;
+     kernels; 64 queries re-searched on the CPU path (the twins, the same
+     params) must agree;
   6. [gist]   the GIST-like path at full width: 1M x 960 corpus, 4,096
      queries, k-means (k=4096, 260k sample, 15 iterations), the same
      build, search_many over 4 batches of 1024 at rerank 150, topk 100,
@@ -38,10 +41,16 @@ then non-zero and no result line is printed):
      distance equal to its id's exact distance. Slots without a distinct
      id (a spilled build can index an id twice) are counted and scored
      as misses.
-  At each probe of both paths one batch is profiled: the rough-scan
-  stage's device time (the kernel and the grouping glue launched in its
-  wrapper) beside the bound of that batch's operands (distinct probed
-  rows), and the groups per cluster. At the checked probe one batch runs under
+  Every probe of both paths runs four times, in turns with the default
+  SearchParams (the lane fold on) and with select_reduce=False (the full
+  scan output): on, off, off, on. A [<path> fold] line sets the two modes
+  side by side: recall, device and host enqueue ms per batch, and from
+  one profiled batch of each run the device ops launched, the selection
+  stage (per-task and global top-k) and the rough-scan stage (the kernel
+  and the grouping glue launched in its wrapper) beside the bound of that
+  batch's operands (distinct probed rows, the output the mode writes),
+  and the groups per cluster. At the checked probe every run is checked,
+  and one batch of each mode runs under
   torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run.
 
 Then a JSON line of per-kernel results, the nvidia-smi name/power-limit
@@ -77,11 +86,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core operations
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot")
-# Checked scan calls profiled a shape, and the record_function label that
-# marks the scan wrapper's call in a profiled search batch.
+# Checked scan calls profiled a shape, and the record_function labels that
+# mark the scan wrapper's call and the selection in a profiled search batch.
 SCAN_PROFILED_CALLS = 5
 SCAN_STAGE = "chip_smoke: rough_scan stage"
+SELECT_STAGE = "chip_smoke: selection stage"
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
+# The scan's modes: fold depth -> name. Search folds at depth 2 by default.
+SCAN_MODES = {2: "fold 2", 1: "fold 1", 0: "full"}
 
 
 def log(msg: str) -> None:
@@ -194,12 +206,13 @@ def cluster_scan_operands(dev, n_clusters, b, probe, span, dim, seed=0,
     return (codes, factors, starts.int(), t_sizes.int(), qvals, scal)
 
 
-def scan_bound(codes, starts, sizes, span):
+def scan_bound(codes, starts, sizes, span, out_width):
     """The least time of one scan on these operands: each probed row's code
     and factors read once (the union of the tasks' windows), each task's
-    query values, scalars, start and size read once, the [S, span] f32
-    output written once; against 2 * D int8 operations per scanned slot.
-    Returns (bound ms, "bytes" or "operations", distinct rows, GB)."""
+    query values, scalars, start and size read once, the [S, out_width]
+    f32 output written once (out_width = span unfolded, depth * 128
+    folded); against 2 * D int8 operations per scanned slot. Returns
+    (bound ms, "bytes" or "operations", distinct rows, GB)."""
     n, dim = codes.shape
     s = starts.shape[0]
     sz = sizes.clamp(0, span).long()
@@ -208,7 +221,7 @@ def scan_bound(codes, starts, sizes, span):
     diff.index_add_(0, starts.long(), one)
     diff.index_add_(0, starts.long() + sz, -one)
     rows = int((torch.cumsum(diff, 0)[:n] > 0).sum())
-    nbytes = rows * (dim + 16) + s * (dim + 16 + 8) + s * span * 4
+    nbytes = rows * (dim + 16) + s * (dim + 16 + 8) + s * out_width * 4
     ops = 2 * dim * int(sz.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -238,8 +251,26 @@ def device_ops(prof):
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0 and e.key != SCAN_STAGE
+        and e.self_device_time_total > 0
+        and e.key not in (SCAN_STAGE, SELECT_STAGE)
     ]
+
+
+class ProfileLostRecords(AssertionError):
+    """A profile holds fewer device records than the calls it covered."""
+
+
+def retry_lost_records(fn, label, attempts=3):
+    """fn(), run again (up to ``attempts`` times in all) while its profile
+    lost device records; every other failure propagates at once. CUPTI
+    has been seen to keep only one call's records of a profiled run."""
+    for attempt in range(1, attempts + 1):
+        try:
+            return fn()
+        except ProfileLostRecords as e:
+            log(f"[profile {label}] attempt {attempt} lost records: "
+                f"{str(e)[:300]}")
+    raise AssertionError(f"[profile {label}] lost records {attempts} times")
 
 
 def split_scan_profile(prof, calls):
@@ -250,8 +281,8 @@ def split_scan_profile(prof, calls):
     ops = device_ops(prof)
     launched = [c for k, _, c in ops if SCAN_KERNEL in k]
     if launched != [calls] or any(c % calls for _, _, c in ops):
-        raise AssertionError(f"profile of {calls} scan calls holds "
-                             f"{[(k[:40], c) for k, _, c in ops]}")
+        raise ProfileLostRecords(f"profile of {calls} scan calls holds "
+                                 f"{[(k[:40], c) for k, _, c in ops]}")
     kernel = sum(t for k, t, _ in ops if SCAN_KERNEL in k)
     glue = sum(t for k, t, _ in ops if SCAN_KERNEL not in k)
     return kernel / calls, glue / calls
@@ -319,23 +350,38 @@ def stage_kernels(event):
     return ks
 
 
+def stage_event(prof, label):
+    """The one CPU event of a record_function range in a profile."""
+    found = [e for e in prof.events() if e.name == label
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(found) != 1:
+        raise AssertionError(f"profiled batch: {len(found)} '{label}' ranges")
+    return found[0]
+
+
 def profile_batch(rt, index, q, params, label, smi):
     """Where one batch's device time goes (torch.profiler, CUPTI). The
-    scan wrapper's call runs inside a record_function range, so the
-    kernels it launches are found by their CPU parents. Returns (kernel
-    ms, glue ms) of the rough-scan stage in that batch: rough_scan_kernel
-    and the other kernels launched in the wrapper (the grouping glue)."""
+    scan wrapper's call and the candidate selection run inside
+    record_function ranges, so the kernels they launch are found by their
+    CPU parents. Returns the rough-scan stage's kernel ms (rough_scan_kernel)
+    and glue ms (the other kernels launched in the wrapper), the selection
+    stage's ms with those of its per-task and its global top-k, the device
+    ops of the batch and its device busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
-    wrapper = tsearch.cuda_rough_scan
+    wrapper, select = tsearch.cuda_rough_scan, tsearch._exact_two_stage
 
     def staged(*args):
         with record_function(SCAN_STAGE):
             return wrapper(*args)
 
+    def selecting(*args):
+        with record_function(SELECT_STAGE):
+            return select(*args)
+
     torch.cuda.synchronize()
-    tsearch.cuda_rough_scan = staged
+    tsearch.cuda_rough_scan, tsearch._exact_two_stage = staged, selecting
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -344,7 +390,7 @@ def profile_batch(rt, index, q, params, label, smi):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        tsearch.cuda_rough_scan = wrapper
+        tsearch.cuda_rough_scan, tsearch._exact_two_stage = wrapper, select
     dev_ops = device_ops(prof)
     busy_ms = sum(t for _, t, _ in dev_ops)
     top = sorted(dev_ops, key=lambda r: -r[1])[:8]
@@ -359,21 +405,34 @@ def profile_batch(rt, index, q, params, label, smi):
         + "; host (self CPU, under the profiler): "
         + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in host_ops)
         + f" [{smi}]")
-    stages = [e for e in prof.events() if e.name == SCAN_STAGE
-              and e.device_type == torch.autograd.DeviceType.CPU]
     scan = [(t, c) for k, t, c in dev_ops if SCAN_KERNEL in k]
-    if len(stages) != 1 or len(scan) != 1 or scan[0][1] != 1:
-        raise AssertionError(f"profiled batch: {len(stages)} scan stages, "
-                             f"scan kernel launches {scan}")
-    glue = sum(t for k, t in stage_kernels(stages[0]) if SCAN_KERNEL not in k)
+    if len(scan) != 1 or scan[0][1] != 1:
+        raise ProfileLostRecords(f"profiled batch: scan kernel launches "
+                                 f"{scan}")
+    glue = sum(us for k, us in stage_kernels(stage_event(prof, SCAN_STAGE))
+               if SCAN_KERNEL not in k)
     if glue <= 0:
-        raise AssertionError("profiled batch: no glue kernel under the stage")
-    return scan[0][0], glue / 1e3
+        raise ProfileLostRecords("profiled batch: no glue kernel under the "
+                                 "stage")
+    sel = stage_event(prof, SELECT_STAGE)
+    topks = sorted((c for c in sel.cpu_children if c.name == "aten::topk"),
+                   key=lambda c: c.time_range.start)
+    if len(topks) != 2:
+        raise AssertionError(f"selection stage holds {len(topks)} topk calls")
+    per_task, glob = (sum(us for _, us in stage_kernels(c)) / 1e3
+                      for c in topks)
+    return dict(kernel_ms=scan[0][0], glue_ms=glue / 1e3,
+                select_ms=sum(us for _, us in stage_kernels(sel)) / 1e3,
+                per_task_ms=per_task, global_ms=glob,
+                device_ops=sum(c for _, _, c in dev_ops), busy_ms=busy_ms)
 
 
 def scan_in_search(rt, index, q, params):
     """The rough-scan operands of one search batch, captured at the
-    wrapper: their bound, distinct rows and groups per cluster."""
+    wrapper: their bound (with the output the batch's mode writes),
+    distinct rows and groups per cluster."""
+    from rabitq_tpu_torch.ops.scan_kernel import effective_fold
+
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     wrapper = tsearch.cuda_rough_scan
     seen = []
@@ -387,11 +446,14 @@ def scan_in_search(rt, index, q, params):
         rt.search(index, q, params)
     finally:
         tsearch.cuda_rough_scan = wrapper
-    codes, _, starts, sizes, _, _, span = seen[0]
-    bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span)
+    codes, _, starts, sizes, _, _, span, fold = seen[0]
+    f = effective_fold(span, fold)
+    bound_ms, bound_by, rows, gb = scan_bound(
+        codes, starts, sizes, span, f * 128 if f else span)
     g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
     return dict(bound_ms=bound_ms, bound_by=bound_by, rows=rows, gb=gb,
-                groups_max=g_max, groups_mean=g_mean, tasks=starts.shape[0])
+                groups_max=g_max, groups_mean=g_mean, tasks=starts.shape[0],
+                fold=f)
 
 
 def check_no_host_sync(rt, index, q, params, label):
@@ -415,65 +477,83 @@ def build_kernels():
         builds = list(pool.map(_cuda.build, KERNEL_SOURCES))
     for name, b in zip(KERNEL_SOURCES, builds):
         ptxas = " | ".join(
-            ln.strip() for ln in b.log.splitlines() if "ptxas" in ln
+            ln.strip() for ln in b.log.splitlines()
+            if ("ptxas" in ln or "spill" in ln) and "Compile time" not in ln
         )
         log(f"[build] {b.path.name} nvcc {b.seconds:.2f}s cached={b.cached} "
             f"| {ptxas}")
     log(f"[build] flags {' '.join(_cuda.NVCC_FLAGS)}")
 
 
-def check_rough_scan(smi, label, ops, span, twin_iters, edges=False):
-    """The scan kernel against its twin on ``ops``. SCAN_PROFILED_CALLS
-    wrapper calls run under the profiler and each output must equal the
-    twin bit for bit (and, for scan_operands, the edge-case tasks 0-3 be
-    right); their profile splits the device time into the kernel and the
-    grouping glue. Then the same call and the twin are timed by CUDA
-    events, beside the bound."""
+def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False):
+    """The scan kernel against its twin on ``ops`` in one mode (fold depth
+    2, 1 or 0). SCAN_PROFILED_CALLS wrapper calls run under the profiler
+    and each output must equal the twin bit for bit (and, for
+    scan_operands, the edge-case tasks 0-3 be right); their profile splits
+    the device time into the kernel and the grouping glue. Then the same
+    call and the twin are timed by CUDA events, beside the bound of the
+    output this mode writes."""
     from torch.profiler import ProfilerActivity, profile
 
     from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
+    from rabitq_tpu_torch.ops.scan_kernel import effective_fold
 
     codes, _, starts, sizes = ops[:4]
     n_rows, dim = codes.shape
     s = starts.shape[0]
-    want = rough_scan_reference(*ops, span)
-    cuda_rough_scan(*ops, span)  # warm-up: launch attribute, occupancy
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        outs = [cuda_rough_scan(*ops, span)
-                for _ in range(SCAN_PROFILED_CALLS)]
-        torch.cuda.synchronize()
-    kernel_ms, glue_ms = split_scan_profile(prof, SCAN_PROFILED_CALLS)
+    f = effective_fold(span, fold)
+    if f != fold:
+        raise AssertionError(f"span {span} does not fold at depth {fold}")
+    mode = SCAN_MODES[fold]
+    want = rough_scan_reference(*ops, span, fold)
     fin = torch.isfinite(want)
+    cuda_rough_scan(*ops, span, fold)  # warm-up: launch attribute, occupancy
+    torch.cuda.synchronize()
     max_abs_err = 0.0
-    for got in outs:
-        same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
-        err = float((got[fin] - want[fin]).abs().max())
-        max_abs_err = max(max_abs_err, err)
-        if not (same_inf and torch.equal(got, want)):
-            raise AssertionError(
-                f"rough_scan kernel != twin, {label} D={dim}: same +inf "
-                f"slots {same_inf}, max |diff| {err}"
-            )
-        if edges and not (
-            torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
-            and torch.isfinite(got[2]).all()
-        ):
-            raise AssertionError("edge cases: size 0 / size == span slots "
-                                 "wrong")
-    del outs, want, fin
-    call_ms = cuda_ms(lambda: cuda_rough_scan(*ops, span), 20)
-    twin_ms = cuda_ms(lambda: rough_scan_reference(*ops, span), twin_iters)
-    bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span)
+
+    def profiled_checked_calls():
+        nonlocal max_abs_err
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs = [cuda_rough_scan(*ops, span, fold)
+                    for _ in range(SCAN_PROFILED_CALLS)]
+            torch.cuda.synchronize()
+        for got in outs:
+            same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
+            err = float((got[fin] - want[fin]).abs().max())
+            max_abs_err = max(max_abs_err, err)
+            if not (same_inf and torch.equal(got.view(torch.int32),
+                                             want.view(torch.int32))):
+                raise AssertionError(
+                    f"rough_scan kernel != twin, {label} {mode} D={dim}: "
+                    f"same +inf slots {same_inf}, max |diff| {err}"
+                )
+            if edges and not (
+                torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
+                and torch.isfinite(got[2]).all()
+            ):
+                raise AssertionError("edge cases: size 0 / size == span "
+                                     "slots wrong")
+        return split_scan_profile(prof, SCAN_PROFILED_CALLS)
+
+    kernel_ms, glue_ms = retry_lost_records(
+        profiled_checked_calls, f"rough_scan {label} {mode}")
+    del want, fin
+    call_ms = cuda_ms(lambda: cuda_rough_scan(*ops, span, fold), 20)
+    twin_ms = cuda_ms(lambda: rough_scan_reference(*ops, span, fold),
+                      twin_iters)
+    out_width = f * 128 if f else span
+    bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span,
+                                              out_width)
     g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
-    log(f"[kernel rough_scan {label}] S={s} span={span} D={dim} N={n_rows}: "
-        f"{SCAN_PROFILED_CALLS} calls bit-equal to twin (max |diff| "
-        f"{max_abs_err}, +inf slots equal); in them kernel {kernel_ms:.4f} "
-        f"ms + grouping glue {glue_ms:.4f} ms of device time (profile); "
-        f"call {call_ms:.4f} ms, twin {twin_ms:.4f} ms (CUDA events); bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({rows} distinct rows, {gb:.4f} "
-        f"GB): call at {100 * bound_ms / call_ms:.1f}%, kernel at "
+    log(f"[kernel rough_scan {label} {mode}] S={s} span={span} D={dim} "
+        f"N={n_rows} out [S, {out_width}]: {SCAN_PROFILED_CALLS} calls "
+        f"bit-equal to twin (max |diff| {max_abs_err}, +inf slots equal); "
+        f"in them kernel {kernel_ms:.4f} ms + grouping glue {glue_ms:.4f} "
+        f"ms of device time (profile); call {call_ms:.4f} ms, twin "
+        f"{twin_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({rows} distinct rows, {gb:.4f} GB): call at "
+        f"{100 * bound_ms / call_ms:.1f}%, kernel at "
         f"{100 * bound_ms / kernel_ms:.1f}% of bound; groups per cluster "
         f"max {g_max} mean {g_mean:.2f} [{smi}]")
     return dict(max_abs_err=max_abs_err, ms=call_ms, plain_ms=twin_ms,
@@ -560,13 +640,148 @@ def int4_phase(dev, smi):
     return res
 
 
+def run_search(rt, index, qd, truth, params, label, smi):
+    """search_many of the whole query set once (after a warm-up batch):
+    wall and device time, host enqueue time and launch counts, recall;
+    then the counters, the scan's bound in one batch and one profiled
+    batch. Returns a dict of what it measured, with ids and dists."""
+    nb, batch = qd.shape[0], qd.shape[1]
+    topk = params.topk
+    rt.search(index, qd[0], params)  # warm-up
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    enqueue = []
+
+    def run():
+        ev0.record()
+        t_enq = time.perf_counter()
+        out = rt.search_many(index, qd, params)
+        enqueue.append(time.perf_counter() - t_enq)
+        ev1.record()
+        return out
+
+    (dists, ids), counts = run_captured(run)
+    search_s = time.perf_counter() - t0
+    res = dict(counts=counts, search_s=search_s, qps=nb * batch / search_s,
+               enqueue_ms=1e3 * enqueue[0] / nb,
+               device_ms=ev0.elapsed_time(ev1) / nb)
+    rt.METRICS.reset()
+    for q in qd:  # counters (untimed)
+        rt.metrics.record_search_stats(
+            rt.search_with_stats(index, q, params)[2]
+        )
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ids = ids.reshape(-1, topk)
+    dists = dists.reshape(-1, topk)
+    hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
+    res.update(ids=ids, dists=dists, recall=float(hits.float().mean() / topk),
+               no_id=int((ids < 0).sum()))
+    scan = scan_in_search(rt, index, qd[1], params)
+    scan.update(retry_lost_records(
+        lambda: profile_batch(rt, index, qd[1], params, label, smi), label))
+    scan["stage_ms"] = scan["kernel_ms"] + scan["glue_ms"]
+    res["scan"] = scan
+    log(f"[{label} search] {nb}x{batch} queries probe={params.probe} "
+        f"rerank={params.rerank} topk={topk} select_reduce="
+        f"{params.select_reduce} (scan fold {scan['fold']}): "
+        f"{search_s:.4f}s wall, {res['device_ms'] * nb:.3f} ms device (CUDA "
+        f"events, {res['device_ms']:.3f} ms/batch; host enqueue "
+        f"{res['enqueue_ms']:.3f} ms/batch), QPS {res['qps']:.1f}, "
+        f"recall@{topk} {res['recall']:.4f}, slots without an id "
+        f"{res['no_id']}, peak mem {peak_gb:.3f} GB, {rt.METRICS.to_str()}, "
+        f"search_many: {counts}; in one batch: rough_scan stage "
+        f"{scan['stage_ms']:.4f} ms = kernel {scan['kernel_ms']:.4f} ms "
+        f"+ grouping glue {scan['glue_ms']:.4f} ms (profile) vs bound "
+        f"{scan['bound_ms']:.4f} ms by {scan['bound_by']} ({scan['rows']} "
+        f"distinct probed rows, {scan['gb']:.4f} GB; stage at "
+        f"{100 * scan['bound_ms'] / scan['stage_ms']:.1f}%, kernel at "
+        f"{100 * scan['bound_ms'] / scan['kernel_ms']:.1f}% of bound), "
+        f"selection stage {scan['select_ms']:.4f} ms (per-task top-k "
+        f"{scan['per_task_ms']:.4f}, global top-k {scan['global_ms']:.4f}), "
+        f"{scan['device_ops']} device ops, {scan['tasks']} tasks, groups "
+        f"per cluster max {scan['groups_max']} mean "
+        f"{scan['groups_mean']:.2f} [{smi}]")
+    return res
+
+
+def log_fold_pair(label, probe, on, off, smi):
+    """The fold-on and fold-off runs of one probe (lists, in the order they
+    ran) side by side."""
+    nb = on[0]["counts"]["rough_scan calls"]
+
+    def pair(fmt, get):
+        return " | ".join(", ".join(fmt.format(get(r)) for r in runs)
+                          for runs in (on, off))
+
+    log(f"[{label} fold] probe {probe}, fold on | off (select_reduce True | "
+        f"False; {len(on)} runs each, ran on, off, off, on): recall {pair('{:.4f}', lambda r: r['recall'])}; device "
+        f"ms/batch {pair('{:.3f}', lambda r: r['device_ms'])}; host enqueue "
+        f"ms/batch {pair('{:.3f}', lambda r: r['enqueue_ms'])}; QPS "
+        f"{pair('{:.1f}', lambda r: r['qps'])}; in one profiled batch: "
+        f"selection stage ms {pair('{:.4f}', lambda r: r['scan']['select_ms'])}"
+        f" = per-task top-k "
+        f"{pair('{:.4f}', lambda r: r['scan']['per_task_ms'])} + global "
+        f"top-k {pair('{:.4f}', lambda r: r['scan']['global_ms'])} (+ index "
+        f"math); rough_scan stage ms "
+        f"{pair('{:.4f}', lambda r: r['scan']['stage_ms'])}, kernel ms "
+        f"{pair('{:.4f}', lambda r: r['scan']['kernel_ms'])}, bound ms "
+        f"{pair('{:.4f}', lambda r: r['scan']['bound_ms'])}; device busy ms "
+        f"{pair('{:.3f}', lambda r: r['scan']['busy_ms'])}; device ops "
+        f"{pair('{}', lambda r: r['scan']['device_ops'])}; kernel launches "
+        f"per batch rough_scan "
+        f"{pair('{:g}', lambda r: r['counts']['rough_scan'] / nb)}, gather_l2 "
+        f"{pair('{:g}', lambda r: r['counts']['gather_l2'] / nb)} [{smi}]")
+
+
+def check_results(base, flat_q, res, cfg, label, nb, min_recall):
+    """Shapes, ids against distances, every returned distance equal to its
+    id's exact distance, recall, and one launch of each search kernel per
+    batch."""
+    ids, dists, topk = res["ids"], res["dists"], cfg["topk"]
+    n = base.shape[0]
+    if tuple(ids.shape) != (flat_q.shape[0], topk):
+        raise AssertionError(f"ids shape {tuple(ids.shape)}")
+    fin = torch.isfinite(dists)
+    if not torch.equal(fin, ids >= 0) or (ids >= n).any():
+        raise AssertionError("out-of-range ids or id/-1 not matching "
+                             "finite/+inf distances")
+    if cfg["every_id"] and res["no_id"]:
+        raise AssertionError(f"{res['no_id']} result slots without an id")
+    xb = torch.from_numpy(base).to(flat_q.device)
+    for a in range(0, ids.shape[0], 256):
+        i, d = ids[a : a + 256], dists[a : a + 256]
+        diff = xb[i.clamp(min=0)] - flat_q[a : a + 256, None, :]
+        exact = (diff * diff).sum(-1)
+        f = torch.isfinite(d)
+        if not f.any():
+            continue
+        atol = 1e-5 * float(exact[f].abs().max())
+        if not torch.allclose(exact[f], d[f], rtol=1e-5, atol=atol):
+            raise AssertionError(
+                f"{label}: returned distances are not the ids' distances"
+            )
+    del xb
+    if res["recall"] < min_recall:
+        raise AssertionError(
+            f"{label}: recall@{topk} {res['recall']:.4f} < {min_recall}")
+    counts = res["counts"]
+    if not (counts["rough_scan"] == counts["gather_l2"]
+            == counts["rough_scan calls"] == nb):
+        raise AssertionError(f"{label}: search_many of {nb} batches: {counts}")
+
+
 def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
     """Ground truth, k-means, build and search_many of one configuration
-    at each probe, with one batch profiled and its rough-scan operands
-    measured against their bound; checks the results at ``check_probe``
-    (and that a batch makes no host sync) and returns (index, params,
-    queries, flat queries, ids, dists, launch counts, scan in search) of
-    that probe's run."""
+    at each probe, with the default SearchParams (the lane fold on) and
+    with select_reduce=False; checks both runs at ``check_probe`` (and
+    that a batch of each makes no host sync) and returns (index, params,
+    flat queries, fold-on run, fold-off run) of that probe. The two modes
+    run in the order on, off, off, on, so that a drift of the host's speed
+    shows as a spread within each mode rather than as a gap between
+    them."""
     n, dim, nq, topk, batch = (cfg[f] for f in ("n", "dim", "nq", "topk",
                                                 "batch"))
     t0 = time.perf_counter()
@@ -618,95 +833,29 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
     checked = None
     for probe in probes:
         params = rt.SearchParams(probe=probe, topk=topk, rerank=cfg["rerank"])
-        rt.search(index, qd[0], params)  # warm-up
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-
-        enqueue = []
-
-        def run():
-            ev0.record()
-            t_enq = time.perf_counter()
-            out = rt.search_many(index, qd, params)
-            enqueue.append(time.perf_counter() - t_enq)
-            ev1.record()
-            return out
-
-        (dists, ids), counts = run_captured(run)
-        search_s = time.perf_counter() - t0
-        enqueue_ms = 1e3 * enqueue[0] / nb
-        device_ms = ev0.elapsed_time(ev1)
-        rt.METRICS.reset()
-        for q in qd:  # counters (untimed)
-            rt.metrics.record_search_stats(
-                rt.search_with_stats(index, q, params)[2]
-            )
-        torch.cuda.synchronize()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        ids = ids.reshape(-1, topk)
-        dists = dists.reshape(-1, topk)
-        hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
-        recall = float(hits.float().mean() / topk)
-        no_id = int((ids < 0).sum())
-        scan = scan_in_search(rt, index, qd[1], params)
-        scan["kernel_ms"], scan["glue_ms"] = profile_batch(
-            rt, index, qd[1], params, f"{label} probe {probe}", smi)
-        scan["stage_ms"] = scan["kernel_ms"] + scan["glue_ms"]
-        log(f"[{label} search] {nb}x{batch} queries probe={probe} "
-            f"rerank={cfg['rerank']} topk={topk}: {search_s:.4f}s wall, "
-            f"{device_ms:.3f} ms device (CUDA events, "
-            f"{device_ms / nb:.3f} ms/batch; host enqueue {enqueue_ms:.3f} "
-            f"ms/batch), QPS {nb * batch / search_s:.1f}, "
-            f"recall@{topk} {recall:.4f}, slots without an id {no_id}, "
-            f"peak mem {peak_gb:.3f} GB, {rt.METRICS.to_str()}, "
-            f"search_many: {counts}; rough_scan stage in one batch "
-            f"{scan['stage_ms']:.4f} ms = kernel {scan['kernel_ms']:.4f} ms "
-            f"+ grouping glue {scan['glue_ms']:.4f} ms (profile) vs bound "
-            f"{scan['bound_ms']:.4f} ms by {scan['bound_by']} ({scan['rows']} "
-            f"distinct probed rows, {scan['gb']:.4f} GB; stage at "
-            f"{100 * scan['bound_ms'] / scan['stage_ms']:.1f}%, kernel at "
-            f"{100 * scan['bound_ms'] / scan['kernel_ms']:.1f}% of bound), "
-            f"{scan['tasks']} tasks, groups per cluster max "
-            f"{scan['groups_max']} mean {scan['groups_mean']:.2f} [{smi}]")
+        modes = {"fold on": params,
+                 "fold off": params._replace(select_reduce=False)}
+        runs = {mode: [] for mode in modes}
+        for mode in ("fold on", "fold off", "fold off", "fold on"):
+            runs[mode].append(run_search(
+                rt, index, qd, truth, modes[mode],
+                f"{label} probe {probe} {mode} #{len(runs[mode]) + 1}", smi))
+        for mode, fold in (("fold on", 2), ("fold off", 0)):
+            if any(r["scan"]["fold"] != fold for r in runs[mode]):
+                raise AssertionError(f"{mode}: the scan did not fold at "
+                                     f"depth {fold}")
+        log_fold_pair(label, probe, runs["fold on"], runs["fold off"], smi)
         if probe != check_probe:
             continue
-        check_no_host_sync(rt, index, qd[1], params, label)
-
-        # Checks on what came out.
-        xb = torch.from_numpy(base).to(dev)
-        if tuple(ids.shape) != (nb * batch, topk):
-            raise AssertionError(f"ids shape {tuple(ids.shape)}")
-        fin = torch.isfinite(dists)
-        if not torch.equal(fin, ids >= 0) or (ids >= n).any():
-            raise AssertionError("out-of-range ids or id/-1 not matching "
-                                 "finite/+inf distances")
-        if cfg["every_id"] and no_id:
-            raise AssertionError(f"{no_id} result slots without an id")
-        for a in range(0, ids.shape[0], 256):
-            i, d = ids[a : a + 256], dists[a : a + 256]
-            diff = xb[i.clamp(min=0)] - flat_q[a : a + 256, None, :]
-            exact = (diff * diff).sum(-1)
-            f = torch.isfinite(d)
-            if not f.any():
-                continue
-            atol = 1e-5 * float(exact[f].abs().max())
-            if not torch.allclose(exact[f], d[f], rtol=1e-5, atol=atol):
-                raise AssertionError(
-                    "returned distances are not the ids' distances"
-                )
-        del xb
-        if recall < min_recall:
-            raise AssertionError(f"recall@{topk} {recall:.4f} < {min_recall}")
-        if not (counts["rough_scan"] == counts["gather_l2"]
-                == counts["rough_scan calls"] == nb):
-            raise AssertionError(
-                f"search_many of {nb} batches at probe {probe}: {counts}"
-            )
-        checked = (index, params, qd, flat_q, ids, dists, counts, scan)
-        log(f"[{label} check] probe {probe}: shapes, finite distances equal "
-            f"to exact, recall, launches ok")
+        for mode, p in modes.items():
+            check_no_host_sync(rt, index, qd[1], p, f"{label} {mode}")
+            for r in runs[mode]:
+                check_results(base, flat_q, r, cfg, f"{label} {mode}", nb,
+                              min_recall)
+        checked = (index, params, flat_q, runs["fold on"][0],
+                   runs["fold off"][0])
+        log(f"[{label} check] probe {probe}, fold on and off: shapes, finite "
+            f"distances equal to exact, recall, launches ok")
     if checked is None:
         raise AssertionError(f"probe {check_probe} not among {probes}")
     return checked
@@ -755,18 +904,22 @@ def main() -> int:
     # 2. Build.
     build_kernels()
 
-    # 3. Kernels against their twins at the paths' shapes.
+    # 3. Kernels against their twins at the paths' shapes: the scan in
+    # each mode, keyed (operands, mode).
     scans = {}
     for path, dim, b, probe, span, twin_iters in (
         ("sift", 128, 2048, 28, 384, 3), ("gist", 1024, 1024, 80, 384, 1),
     ):
-        ops = scan_operands(dev, 1_200_000, b * probe, span, dim)
-        scans[f"{path} random"] = check_rough_scan(
-            smi, f"{path} random", ops, span, twin_iters, edges=True)
-        ops = cluster_scan_operands(dev, K + 1, b, probe, span, dim)
-        scans[f"{path} clusters"] = check_rough_scan(
-            smi, f"{path} clusters", ops, span, twin_iters)
-        del ops
+        for operands in ("random", "clusters"):
+            if operands == "random":
+                ops = scan_operands(dev, 1_200_000, b * probe, span, dim)
+            else:
+                ops = cluster_scan_operands(dev, K + 1, b, probe, span, dim)
+            for fold in SCAN_MODES:
+                scans[f"{path} {operands}", fold] = check_rough_scan(
+                    smi, f"{path} {operands}", ops, span, twin_iters, fold,
+                    edges=operands == "random")
+            del ops
     gather_gist = check_gather_l2(dev, smi, 1_200_000, 1024, 1024, 150)
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
     torch.cuda.empty_cache()
@@ -775,44 +928,60 @@ def main() -> int:
     int4 = int4_phase(dev, smi)
 
     # 5. The sift main path.
-    index, params, qd, flat_q, ids, dists, sift_counts, sift_scan = (
-        search_path(rt, dev, smi, "sift", SIFT, (SIFT["probe"],),
-                    SIFT["probe"], MIN_RECALL))
-    sift_cpu_agreement(rt, index, params, flat_q, ids, dists, SIFT["topk"])
-    del index, qd, flat_q, ids, dists
+    index, params, flat_q, sift_on, sift_off = search_path(
+        rt, dev, smi, "sift", SIFT, (SIFT["probe"],), SIFT["probe"],
+        MIN_RECALL)
+    sift_cpu_agreement(rt, index, params, flat_q, sift_on["ids"],
+                       sift_on["dists"], SIFT["topk"])
+    del index, flat_q, sift_on["ids"], sift_on["dists"]
+    del sift_off["ids"], sift_off["dists"]
     gc.collect()
     torch.cuda.empty_cache()
 
     # 6. The gist path.
-    _, _, _, _, _, _, gist_counts, gist_scan = search_path(
+    *_, gist_on, gist_off = search_path(
         rt, dev, smi, "gist", GIST, GIST_PROBES, GIST_CHECK_PROBE, MIN_RECALL,
     )
+    gist_label = f"gist probe {GIST_CHECK_PROBE}"
 
     def launches(name):
-        return {"launches": sift_counts[name] + gist_counts[name],
-                "launches_by_path": {"sift": sift_counts[name],
-                                     "gist": gist_counts[name]}}
+        """The main path's launches: the checked probes' default runs."""
+        sift, gist = sift_on["counts"][name], gist_on["counts"][name]
+        return {"launches": sift + gist,
+                "launches_by_path": {"sift": sift, "gist": gist},
+                "launches_fold_off": sift_off["counts"][name]
+                + gist_off["counts"][name]}
 
+    def in_search(run):
+        return {key: run["scan"][key]
+                for key in ("stage_ms", "kernel_ms", "glue_ms", "bound_ms",
+                            "select_ms", "per_task_ms", "global_ms",
+                            "device_ops")}
+
+    main_mode = scans["sift clusters", 2]
     log(json.dumps({"kernels": [
         {"name": "rough_scan", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/rough_scan.cu",
          "replaces": "rabitq_tpu/ops/scan_kernel.py:621",
          **launches("rough_scan"),
          "max_abs_err": max(r["max_abs_err"] for r in scans.values()),
-         **{key: scans["sift clusters"][key]
+         **{key: main_mode[key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None,
-         "operands": "sift clusters",
-         "by_operands": {
-             label: {key: r[key] for key in ("ms", "kernel_ms", "glue_ms",
-                                             "plain_ms", "bound_ms")}
-             for label, r in scans.items()},
+         "operands": "sift clusters, fold 2 (search's default mode)",
+         "modes": {
+             SCAN_MODES[fold]: {
+                 ops: {key: scans[ops, fold][key]
+                       for key in ("ms", "kernel_ms", "glue_ms", "plain_ms",
+                                   "bound_ms")}
+                 for ops in ("sift random", "sift clusters", "gist random",
+                             "gist clusters")}
+             for fold in SCAN_MODES},
          "in_search": {
-             path: {key: scan[key] for key in ("stage_ms", "kernel_ms",
-                                               "glue_ms", "bound_ms")}
-             for path, scan in (("sift", sift_scan),
-                                (f"gist probe {GIST_CHECK_PROBE}",
-                                 gist_scan))}},
+             f"{path} {mode}": in_search(run)
+             for path, runs in (("sift", (sift_on, sift_off)),
+                                (gist_label, (gist_on, gist_off)))
+             for mode, run in zip(("fold on", "fold off"), runs)}},
         {"name": "gather_l2", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/gather_l2.cu",
          "replaces": "rabitq_tpu/ops/rerank_kernel.py:103",

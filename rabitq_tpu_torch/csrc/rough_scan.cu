@@ -1,7 +1,8 @@
 // RaBitQ rough-distance scan for Hopper (sm_90a), grouped by cluster.
 //
 // Replaces the TPU kernel rabitq_tpu/ops/scan_kernel.py:pallas_rough_scan
-// (Pallas body _kernel) in its unfolded, unpacked form.
+// (Pallas body _kernel): its full output and its lane fold (reduce 1 or 2),
+// not its nibble-packed query operand (qpack).
 //
 // A task t is one (query, probed cluster) pair. For every slot j < span of
 // task t, row = starts[t] + j of the cluster-sorted index:
@@ -18,11 +19,22 @@
 // cannot contract it to FMAs and the kernel equals the twin bit for bit.
 // The dot is exact in int32 (|dot| <= 127 * 15 * D < 2^24 for D <= 8192).
 //
+// The lane fold (template depth kFold = 1 or 2, chosen by the wrapper's
+// effective_fold): out is [S, kFold * 128] instead of [S, span]. Column
+// r < 128 holds the smallest slot-packed value of bucket {j < size :
+// j % 128 == r}, column 128 + r (kFold 2) the second smallest. A packed
+// value is the estimate's bits with the low slot_bits mantissa bits
+// replaced by j (slot_bits = bit length of span - 1); buckets without
+// enough valid slots hold +inf. Values enter each bucket in slot order
+// through the strict < chain of the JAX kernel (scan_kernel.py:276-280),
+// so NaN estimates drop and the result equals the twin's bit for bit.
+//
 // What bounds it on this card: bytes. A batch must read each probed
 // cluster's rows once (D + 16 bytes a row, codes and factors), each task's
 // query values once and write the [S, span] f32 output once: at D 1024
 // about 1.45 GB a batch, ~0.43 ms at 3.35 TB/s, against 48 G int8
-// operations, ~0.024 ms at 1,979 TOP/s. One block per task re-read a
+// operations, ~0.024 ms at 1,979 TOP/s. The fold at depth 2 writes 256
+// columns a task instead of span (1.41 GB at span 384). One block per task re-read a
 // cluster's rows for each of the ~14 (D 128) to ~20 (D 1024) tasks that
 // probe it.
 //
@@ -43,7 +55,14 @@
 //     code rows: a stored [rows, D] row is the column-major k32 x n8
 //     operand. Each warp owns 16 window rows of a tile;
 //   - applies the estimator to the s32 accumulators and writes out[t, j]
-//     by task id, then +inf for slots [size, span).
+//     by task id, then +inf for slots [size, span); or, folded, keeps
+//     each bucket's best kFold values in registers. A thread owns the
+//     same window row r of every tile (accumulator (mt, nt, h, e) is row
+//     warp*16 + nt*8 + (lane%4)*2 + e), and slot tile*128 + r falls in
+//     bucket r, so the running best of its 16 (task, row) pairs needs no
+//     shared memory and no second pass; it writes them once a group, as
+//     float2 pairs, +inf included. The fold writes kFold * 128 columns a
+//     task instead of span.
 // Shared rows are padded by 16 bytes so ldmatrix's eight 16-byte rows of
 // a phase fall in distinct banks.
 
@@ -101,6 +120,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int kFold>
 __global__ void __launch_bounds__(kThreads, 2)
 rough_scan_kernel(const int8_t* __restrict__ codes,
                   const float4* __restrict__ factors,
@@ -127,6 +147,11 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
   const int warp = tid >> 5;
   const int n_chunks = (dim + kChunk - 1) / kChunk;
   const float inf = __int_as_float(0x7f800000);
+  // Folded: the window slot's bits, and per (mt, h, nt, e) the running
+  // best (b1) and second best (b2) packed value of that thread's bucket.
+  const int slot_mask = (1 << max(1, 32 - __clz(span - 1))) - 1;
+  constexpr int kOutW = kFold * kRows;
+  float b1[2][2][2][2], b2[2][2][2][2];
 
   for (;;) {
     if (tid == 0) s_group = atomicAdd(next_group, 1);
@@ -150,6 +175,13 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
       }
     }
     __syncthreads();
+    if constexpr (kFold > 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        (&b1[0][0][0][0])[i] = inf;
+        (&b2[0][0][0][0])[i] = inf;
+      }
+    }
 
     const int n_stages = ((size + kRows - 1) / kRows) * n_chunks;
     if (n_stages > 0) {
@@ -244,7 +276,7 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
             if (m >= count) continue;
             const float4 sc = s_scal[m];
             const float sq = s_sqrt[m];
-            float* out_t = out + (size_t)s_task[m] * span;
+            float* out_t = out + (size_t)s_task[m] * span;  // unfolded
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -259,7 +291,19 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
                 v = __fadd_rn(
                     v, __fmul_rn(__fmul_rn(__int2float_rn(dot), f.x), sc.y));
                 v = __fsub_rn(v, __fmul_rn(f.z, sq));
-                out_t[j] = v;
+                if constexpr (kFold == 0) {
+                  out_t[j] = v;
+                } else {
+                  const float pe =
+                      __int_as_float((__float_as_int(v) & ~slot_mask) | j);
+                  float& v1 = b1[mt][h][nt][e];
+                  const bool lt1 = pe < v1;
+                  if constexpr (kFold >= 2) {
+                    float& v2 = b2[mt][h][nt][e];
+                    v2 = lt1 ? v1 : (pe < v2 ? pe : v2);
+                  }
+                  if (lt1) v1 = pe;
+                }
               }
             }
           }
@@ -267,14 +311,93 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
       }
     }
 
-    const int pad = span - size;
-    for (int p = tid; p < count * pad; p += kThreads) {
-      const int i = p / pad;
-      out[(size_t)s_task[i] * span + size + (p - i * pad)] = inf;
+    if constexpr (kFold == 0) {
+      const int pad = span - size;
+      for (int p = tid; p < count * pad; p += kThreads) {
+        const int i = p / pad;
+        out[(size_t)s_task[i] * span + size + (p - i * pad)] = inf;
+      }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 16 + h * 8 + (lane >> 2);
+          if (m >= count) continue;
+          float* out_t = out + (size_t)s_task[m] * kOutW;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int r = warp * 16 + nt * 8 + (lane & 3) * 2;
+            *reinterpret_cast<float2*>(out_t + r) =
+                make_float2(b1[mt][h][nt][0], b1[mt][h][nt][1]);
+            if constexpr (kFold >= 2)
+              *reinterpret_cast<float2*>(out_t + kRows + r) =
+                  make_float2(b2[mt][h][nt][0], b2[mt][h][nt][1]);
+          }
+        }
+      }
     }
     cp_async_wait<0>();  // the ring's trailing commits are empty
     __syncthreads();
   }
+}
+
+// The launch of one depth's kernel. The attribute and occupancy queries
+// cost host time every batch, so the resident-block count is kept per
+// (device, smem) for the process, per depth (each instantiation is a
+// function of its own). The shared-memory maximum is a per-device
+// attribute of the function: it only ever grows, so a launch never finds
+// it below its own size.
+template <int kFold>
+int launch_scan(const void* codes, const void* factors, const void* starts,
+                const void* sizes, const void* qvals, const void* scal,
+                const void* order, const void* group_first, void* next_group,
+                void* out, int n_tasks, int dim, int span,
+                cudaStream_t stream) {
+  const int smem = kQpc * (dim + 16) + kStages * kStageBytes;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> resident_of;
+  static std::map<int, int> smem_set;
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = resident_of.find({device, smem});
+    if (it != resident_of.end()) {
+      resident = it->second;
+    } else {
+      int& set = smem_set[device];
+      if (smem > set) {
+        err = cudaFuncSetAttribute(rough_scan_kernel<kFold>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        set = smem;
+      }
+      int sms = 0, per_sm = 0;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        device)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, rough_scan_kernel<kFold>, kThreads, smem)) !=
+              cudaSuccess)
+        return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      resident = per_sm * sms;
+      resident_of[{device, smem}] = resident;
+    }
+  }
+  const int grid = n_tasks < resident ? n_tasks : resident;
+  rough_scan_kernel<kFold><<<grid, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(codes), static_cast<const float4*>(factors),
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sizes),
+      static_cast<const int8_t*>(qvals), static_cast<const float4*>(scal),
+      static_cast<const int64_t*>(order),
+      static_cast<const int32_t*>(group_first),
+      static_cast<int32_t*>(next_group), static_cast<float*>(out), n_tasks,
+      dim, span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -288,62 +411,33 @@ extern "C" int rabitq_rough_scan_qpc() { return kQpc; }
 // grouping: the tasks of group g are order[group_first[g] ..
 // group_first[g + 1]), at most kQpc of them, all with one (start, size);
 // group_first is S past the last group. next_group is one int32 set to 0.
-// Preconditions, checked by the Python wrapper: every pointer is 16-byte
-// aligned, dim % 32 == 0, and starts[t] + min(sizes[t], span) <= N for
-// every task.
+// fold is the effective depth: 0 writes out [S, span], 1 or 2 the folded
+// [S, fold * 128] (the wrapper applies effective_fold, so span > fold *
+// 128). Preconditions, checked by the Python wrapper: every pointer is
+// 16-byte aligned, dim % 32 == 0, and starts[t] + min(sizes[t], span) <= N
+// for every task.
 extern "C" int rabitq_rough_scan(const void* codes, const void* factors,
                                  const void* starts, const void* sizes,
                                  const void* qvals, const void* scal,
                                  const void* order, const void* group_first,
                                  void* next_group, void* out, int n_tasks,
-                                 int dim, int span, void* stream) {
+                                 int dim, int span, int fold, void* stream) {
   if (n_tasks <= 0) return 0;
-  const int smem = kQpc * (dim + 16) + kStages * kStageBytes;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // The attribute and occupancy queries cost host time every batch, so the
-  // resident-block count is kept per (device, smem) for the process. The
-  // shared-memory maximum is a per-device attribute of the function: it
-  // only ever grows, so a launch never finds it below its own size.
-  static std::mutex mu;
-  static std::map<std::pair<int, int>, int> resident_of;
-  static std::map<int, int> smem_set;
-  int resident = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    auto it = resident_of.find({device, smem});
-    if (it != resident_of.end()) {
-      resident = it->second;
-    } else {
-      int& set = smem_set[device];
-      if (smem > set) {
-        err = cudaFuncSetAttribute(rough_scan_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        set = smem;
-      }
-      int sms = 0, per_sm = 0;
-      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        device)) != cudaSuccess ||
-          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, rough_scan_kernel, kThreads, smem)) != cudaSuccess)
-        return static_cast<int>(err);
-      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-      resident = per_sm * sms;
-      resident_of[{device, smem}] = resident;
-    }
+  auto* st = static_cast<cudaStream_t>(stream);
+  switch (fold) {
+    case 0:
+      return launch_scan<0>(codes, factors, starts, sizes, qvals, scal, order,
+                            group_first, next_group, out, n_tasks, dim, span,
+                            st);
+    case 1:
+      return launch_scan<1>(codes, factors, starts, sizes, qvals, scal, order,
+                            group_first, next_group, out, n_tasks, dim, span,
+                            st);
+    case 2:
+      return launch_scan<2>(codes, factors, starts, sizes, qvals, scal, order,
+                            group_first, next_group, out, n_tasks, dim, span,
+                            st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = n_tasks < resident ? n_tasks : resident;
-  rough_scan_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), static_cast<const float4*>(factors),
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sizes),
-      static_cast<const int8_t*>(qvals), static_cast<const float4*>(scal),
-      static_cast<const int64_t*>(order),
-      static_cast<const int32_t*>(group_first),
-      static_cast<int32_t*>(next_group), static_cast<float*>(out), n_tasks,
-      dim, span);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -86,6 +86,20 @@ class SearchParams(NamedTuple):
             selected exactly (per-task top-R, then global top-R).
     dither: quantize query residuals by floor + the index's dither
             instead of round-to-nearest.
+    select_reduce: lane-fold the scan before selection, as the JAX
+            default does: the scan keeps the best ``fold_depth`` estimates
+            of each (task, slot % 128) bucket, slot-packed, so selection
+            reads fold_depth * 128 columns a task instead of capacity. A
+            candidate is lost only when fold_depth + 1 better values share
+            its bucket. Off when capacity <= fold_depth * 128 or
+            rerank > probe * fold_depth * 128. The port folds on the CPU
+            too (the kernel's twin), so both devices give the same
+            candidates; False gives the full scan output, which is what
+            the JAX package's CPU path selects from.
+    fold_depth: estimates kept per bucket, 1 or 2 (clamped).
+
+    The selection is always the JAX ``select_mode="exact"`` two-stage
+    top-R, over the folded or the full scan output.
 
     Not ported from the JAX package's SearchParams:
     rerank_kernel:  the rerank always runs the gather+L2 kernel on the GPU.
@@ -97,9 +111,14 @@ class SearchParams(NamedTuple):
     rank_precision: "default" ranks clusters with one bf16 MXU pass. The
                     port ranks in full fp32 (TF32 off), which only moves
                     near-tied cluster ranks against that setting.
+    select_mode, approx_select, select_recall, select_passes: the
+                    approximate selections (``approx_min_k``, a TPU op);
+                    the port selects exactly.
     """
 
     probe: int = 100
     topk: int = 10
     rerank: int = 128
     dither: bool = False
+    select_reduce: bool = True
+    fold_depth: int = 2

@@ -7,9 +7,11 @@ For a batch of queries:
      lower cluster id, as with ``lax.top_k``);
   2. quantize the [B, probe] query residuals to 4 bits;
   3. rough scan: the RaBitQ estimator on every row of every probed
-     cluster (ops/scan_kernel.py — the CUDA kernel on the GPU);
-  4. select the R lowest rough distances exactly (per-task top-R, then a
-     global top-R over the survivors);
+     cluster (ops/scan_kernel.py — the CUDA kernel on the GPU), lane-folded
+     to the best 2 slot-packed values per (task, slot % 128) by default
+     (SearchParams.select_reduce);
+  4. select the R lowest rough values exactly (per-task top-R, then a
+     global top-R over the survivors) and decode their rows;
   5. exact L2 of the candidates' full-precision rows (ops/rerank_kernel.py
      — the CUDA gather+L2 kernel on the GPU), and the final top-k —
      deduplicated by id when the build spilled rows.
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
@@ -31,6 +34,7 @@ from rabitq_tpu_torch.ops import (
     quantize_query_residuals,
     rotate,
 )
+from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
 
 
 class Candidates(NamedTuple):
@@ -51,8 +55,12 @@ class SearchStats(NamedTuple):
 
 
 class RoughScan(NamedTuple):
-    """Rough-distance scan output in cluster-visit order: the row of flat
-    value j of query b is ``starts[b, j // width] + j % width``."""
+    """Rough-distance scan output in cluster-visit order. Unfolded, width
+    is the index capacity and the row of flat value j of query b is
+    ``starts[b, j // width] + j % width``. Folded at depth f, width is
+    f * 128 and each finite value is slot-packed: its row is
+    ``starts[b, j // width]`` plus its low ``fold_slot_bits(capacity)``
+    bits (ops/scan_kernel.py)."""
 
     rough: torch.Tensor      # [B, probe * width] f32 (+inf on padded slots)
     starts: torch.Tensor     # [B, probe] int32 cluster start rows
@@ -60,8 +68,9 @@ class RoughScan(NamedTuple):
 
 
 def _resolve(index: RaBitQIndex, params: SearchParams) -> tuple[int, int, int]:
-    """(probe, width, rerank) for this index: probe capped at k, the scan
-    width = capacity, and R capped at the rows that can be scanned."""
+    """(probe, capacity, rerank) for this index: probe capped at k, the
+    capacity (the scan span) and R capped at the rows that can be
+    scanned."""
     probe = min(params.probe, index.k)
     cap = index.capacity
     rerank = max(params.topk, min(params.rerank, probe * cap))
@@ -85,11 +94,15 @@ def _rank_clusters(cdist: torch.Tensor, probe: int) -> torch.Tensor:
 
 
 def rough_scan(
-    index: RaBitQIndex, queries: torch.Tensor, params: SearchParams
+    index: RaBitQIndex,
+    queries: torch.Tensor,
+    params: SearchParams,
+    fold: int = 0,
 ) -> RoughScan:
     """Stages 1-3: rough distances of every row of every probed cluster,
-    clusters nearest-first, rows in cluster (centroid-distance) order."""
-    probe, width, _ = _resolve(index, params)
+    clusters nearest-first, rows in cluster (centroid-distance) order;
+    lane-folded at depth ``effective_fold(capacity, fold)``."""
+    probe, cap, _ = _resolve(index, params)
     b = queries.shape[0]
     y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
     cids = _rank_clusters(pairwise_l2sq(y, index.centroids_rot), probe)
@@ -110,10 +123,11 @@ def rough_scan(
         sizes.reshape(s).contiguous(),
         qq.quantized.reshape(s, index.dim).contiguous(),
         scal.reshape(s, 4).contiguous(),
-        width,
+        cap,
+        fold,
     )
     return RoughScan(
-        rough=rough.reshape(b, probe * width),
+        rough=rough.reshape(b, probe * rough.shape[1]),
         starts=starts,
         n_scanned=sizes.sum(dim=-1, dtype=torch.int64),
     )
@@ -139,12 +153,34 @@ def _exact_two_stage(
 def estimate_candidates(
     index: RaBitQIndex, queries: torch.Tensor, params: SearchParams
 ) -> Candidates:
-    """Stages 1-4: rough scan and exact rerank-candidate selection."""
-    probe, width, rerank = _resolve(index, params)
-    scan = rough_scan(index, queries, params)
+    """Stages 1-4: rough scan and exact rerank-candidate selection.
+
+    The fold gate of rabitq_tpu.index.search.estimate_candidates: on with
+    ``select_reduce`` when the capacity exceeds ``fold_depth`` * 128 and
+    the folded width holds the rerank budget."""
+    probe, cap, rerank = _resolve(index, params)
+    # A row filter (not ported yet) will force the fold off: its penalty
+    # must land on unfolded estimates (rabitq_tpu/index/search.py:470-493).
+    depth = effective_fold(cap, max(1, min(2, int(params.fold_depth))))
+    fold = (
+        depth
+        if depth and params.select_reduce and rerank <= probe * depth * LANES
+        else 0
+    )
+    scan = rough_scan(index, queries, params, fold)
+    width = scan.rough.shape[1] // probe
     lb, flat_idx = _exact_two_stage(scan.rough, probe, width, rerank)
     task = flat_idx // width  # [B, R] index into the probed clusters
-    pos = torch.gather(scan.starts.long(), 1, task) + flat_idx % width
+    base = torch.gather(scan.starts.long(), 1, task)
+    if fold:
+        # Folded values carry their window slot in their low mantissa
+        # bits; the bound with them cleared is the floor-quantized estimate.
+        mask = (1 << fold_slot_bits(cap)) - 1
+        bits = lb.view(torch.int32)
+        pos = base + (bits & mask)  # +inf decodes to slot 0
+        lb = (bits & ~mask).view(torch.float32)
+    else:
+        pos = base + flat_idx % width
     pos = torch.clamp(pos, max=index.n - 1)  # invalid slots are +inf anyway
     return Candidates(pos=pos, lower_bound=lb, n_scanned=scan.n_scanned)
 

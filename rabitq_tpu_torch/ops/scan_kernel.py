@@ -1,8 +1,9 @@
 """Rough-distance scan: the CUDA kernel's wrapper and its plain twin.
 
-Port of rabitq_tpu.ops.scan_kernel.pallas_rough_scan (unfolded, unpacked).
-A task t is one (query, probed cluster) pair; slot j of its output is row
-``starts[t] + j`` of the cluster-sorted index:
+Port of rabitq_tpu.ops.scan_kernel.pallas_rough_scan (the full output and
+the lane fold; not the nibble-packed query operand). A task t is one
+(query, probed cluster) pair; slot j of its output is row ``starts[t] + j``
+of the cluster-sorted index:
 
   rough[t, j] = ((((cdsq + ycd) + lo*ppc) + (dot*ip)*delta) - err*sqrt(ycd))
 
@@ -10,6 +11,15 @@ with dot = <qvals[t], codes[row]> (exact int), (ip, ppc, err, cdsq) the
 row's factors and (lo, delta, code_sum, ycd) = scal[t]. Slots j >= sizes[t]
 are +inf. These are the coordinates of the JAX package's aligned kernel
 path: slot = rank of the row within its cluster.
+
+With ``fold`` = f > 0 (``effective_fold``) the output is the lane fold of
+that [S, span] array, [S, f * 128]: column ``lane`` holds the smallest
+SLOT-PACKED value of the bucket {j : j % 128 == lane, j < sizes[t]} and
+column ``128 + lane`` (f = 2) the second smallest. A packed value is the
+estimate's bit pattern with its low ``fold_slot_bits(span)`` mantissa bits
+replaced by j, so it carries its own slot and orders as the estimate
+does, up to that quantization. A bucket with fewer valid slots than f
+holds +inf, never packed.
 
 ``cuda_rough_scan`` runs the hand-written kernel (csrc/rough_scan.cu) on
 CUDA tensors and the twin ``rough_scan_reference`` on CPU tensors. Before
@@ -25,6 +35,7 @@ import functools
 
 import torch
 
+from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.ops import _cuda
 
 # Bytes of the twin's gathered [chunk, span, D] f32 code window.
@@ -41,9 +52,9 @@ QPC = 32
 @functools.cache
 def _kernel():
     """The built kernel's C entry point, with its ctypes signature: ten
-    pointers, n_tasks, dim, span, and the stream (pointers and the stream
-    as c_void_p so ctypes does not cut them to 32 bits). Raises unless the
-    kernel was built for groups of ``QPC`` tasks."""
+    pointers, n_tasks, dim, span, fold, and the stream (pointers and the
+    stream as c_void_p so ctypes does not cut them to 32 bits). Raises
+    unless the kernel was built for groups of ``QPC`` tasks."""
     lib = _cuda.load("rough_scan")
     if lib.rabitq_rough_scan_qpc() != QPC:
         raise RuntimeError(
@@ -51,9 +62,32 @@ def _kernel():
             f"tasks a group, grouping cuts at {QPC}"
         )
     fn = lib.rabitq_rough_scan
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def fold_slot_bits(span: int) -> int:
+    """Low mantissa bits that hold the window slot of a folded value:
+    enough for any slot below ``span`` (rabitq_tpu.ops.scan_kernel)."""
+    return max(1, (span - 1).bit_length())
+
+
+def effective_fold(span: int, depth: bool | int) -> int:
+    """The fold depth the scan applies at this span: ``depth`` clamped to
+    0..2 (True is 2), and 0 unless the window has more than ``depth``
+    128-slot tiles. Below that the output is the raw [S, span] estimates,
+    not slot-packed, so a caller that decodes packed slots gates on this
+    and not on the depth it asked for.
+
+    The port passes ``index.capacity`` as the span where the JAX package
+    passes its multiple of 128, ``scan_span(capacity)``. Both give the same
+    gate, since ``depth * 128`` is a multiple of 128, and wherever the fold
+    is on the same slot bits: they differ only if a power of two lay in
+    [capacity, scan_span(capacity)), and one above 128 is itself a
+    multiple of 128."""
+    depth = 2 if depth is True else min(2, max(0, int(depth)))
+    return depth if (depth and span > depth * LANES) else 0
 
 
 def group_tasks(
@@ -121,17 +155,22 @@ def rough_scan_reference(
     qvals: torch.Tensor,
     scal: torch.Tensor,
     span: int,
+    fold: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: same contract, any device.
 
     The integer dot is an fp32 batched matmul, exact because every partial
     sum is an integer below 2^24 (|dot| <= 127 * 15 * D) and TF32 is off.
-    Tasks run in chunks that bound the [chunk, span, D] gathered window.
+    Tasks run in chunks that bound the [chunk, span, D] gathered window;
+    with a fold each chunk's estimates are packed and folded in turn.
     """
     _check(codes, factors, starts, sizes, qvals, scal, span)
     n, d = codes.shape
     s = starts.shape[0]
-    out = torch.empty((s, span), dtype=torch.float32, device=codes.device)
+    f = effective_fold(span, fold)
+    out = torch.empty(
+        (s, f * LANES if f else span), dtype=torch.float32, device=codes.device
+    )
     iota = torch.arange(span, device=codes.device)
     chunk = max(1, _TWIN_CHUNK_BYTES // (4 * span * d))
     for a in range(0, s, chunk):
@@ -147,8 +186,37 @@ def rough_scan_reference(
         est = est + lo * fac[..., 1]
         est = est + (dot * fac[..., 0]) * delta
         est = est - fac[..., 2] * torch.sqrt(ycd)
-        out[a:b] = torch.where(valid, est, torch.inf)
+        if f:
+            out[a:b] = _lane_fold(est, valid, span, f)
+        else:
+            out[a:b] = torch.where(valid, est, torch.inf)
     return out
+
+
+def _lane_fold(
+    est: torch.Tensor, valid: torch.Tensor, span: int, fold: int
+) -> torch.Tensor:
+    """[c, span] estimates -> [c, fold * 128] bucket minima, slot-packed.
+
+    The strict ``<`` chain of the JAX kernel's epilogue, tile by tile in
+    slot order, so that NaN estimates drop and ties resolve as there."""
+    mask = (1 << fold_slot_bits(span)) - 1
+    slot = torch.arange(span, dtype=torch.int32, device=est.device)
+    packed = ((est.view(torch.int32) & ~mask) | slot).view(torch.float32)
+    packed = torch.where(valid, packed, torch.inf)
+    tiles = -(-span // LANES)
+    packed = torch.nn.functional.pad(
+        packed, (0, tiles * LANES - span), value=torch.inf
+    ).reshape(-1, tiles, LANES)
+    v1 = torch.full_like(packed[:, 0], torch.inf)
+    v2 = torch.full_like(v1, torch.inf)
+    for t in range(tiles):
+        pe = packed[:, t]
+        lt1 = pe < v1
+        if fold >= 2:
+            v2 = torch.where(lt1, v1, torch.where(pe < v2, pe, v2))
+        v1 = torch.where(lt1, pe, v1)
+    return torch.cat([v1, v2], dim=1) if fold >= 2 else v1
 
 
 def cuda_rough_scan(
@@ -159,9 +227,11 @@ def cuda_rough_scan(
     qvals: torch.Tensor,
     scal: torch.Tensor,
     span: int,
+    fold: int = 0,
 ) -> torch.Tensor:
-    """Rough scan [S, span] f32. CUDA tensors launch the sm_90a kernel;
-    CPU tensors take the twin. The caller guarantees
+    """Rough scan: [S, span] f32, or [S, f * 128] slot-packed bucket minima
+    when ``f = effective_fold(span, fold)`` > 0. CUDA tensors launch the
+    sm_90a kernel; CPU tensors take the twin. The caller guarantees
     ``starts[t] + min(sizes[t], span) <= N`` for every task. On the card
     D must be a multiple of 32 (the index pads it to a multiple of 128).
 
@@ -169,7 +239,7 @@ def cuda_rough_scan(
     """
     if codes.device.type == "cpu":
         return rough_scan_reference(
-            codes, factors, starts, sizes, qvals, scal, span
+            codes, factors, starts, sizes, qvals, scal, span, fold
         )
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
@@ -184,7 +254,10 @@ def cuda_rough_scan(
     for t in args:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")
-    out = torch.empty((s, span), dtype=torch.float32, device=codes.device)
+    f = effective_fold(span, fold)
+    out = torch.empty(
+        (s, f * LANES if f else span), dtype=torch.float32, device=codes.device
+    )
     if s == 0:
         return out
     order, group_first = group_tasks(starts, sizes, n, span)
@@ -198,6 +271,7 @@ def cuda_rough_scan(
             s,
             d,
             span,
+            f,
             stream,
         )
     if err:

@@ -9,14 +9,16 @@ no JAX it runs as
 The rough-scan kernel must equal its twin bit for bit (the estimator is
 written in the twin's operation order with explicitly rounded intrinsics,
 and the int8 tensor-core dot is exact), on random operands and on
-cluster-structured ones whose tasks share windows,
-and so must the int4 kernels (integer arithmetic). The gather-l2 kernel
+cluster-structured ones whose tasks share windows, in each of its modes
+(the full output and the lane fold at depth 1 and 2), and so must the int4
+kernels (integer arithmetic). The gather-l2 kernel
 sums the same f32 squares as its twin in another order: rtol 1e-5, atol
 1e-5 * max|out|.
 """
 
 import concurrent.futures
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from rabitq_tpu_torch.ops import (
     pack_int4,
     rough_scan_reference,
 )
+from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
 from rabitq_tpu_torch.tools import int4probe
 
 pytestmark = pytest.mark.cuda
@@ -93,25 +96,105 @@ def test_grouped_kernel_equals_twin_on_clusters(dev, d, n_clusters, b, probe,
     assert torch.isfinite(got[0]).all()  # the last cluster, size == span
 
 
+@pytest.mark.parametrize("fold", [0, 1, 2])
 @pytest.mark.parametrize("d", [128, 1024])
-@pytest.mark.parametrize("s", [1, 16, 17, 32, 33, 2048])
-def test_grouped_kernel_max_sharing(dev, d, s):
-    """Every task probes one window ending at row N-1 (2048 tasks: 64
-    groups of one key); every third task instead probes an empty cluster
-    at the same start."""
+@pytest.mark.parametrize("s", [1, 16, 17, 24, 32, 33, 2048])
+def test_grouped_kernel_max_sharing(dev, d, s, fold):
+    """Every task probes one window ending at row N-1 (17-31 tasks: two
+    m16 tiles, the second partial; 33: two groups; 2048 tasks: 64 groups
+    of one key); every third task instead probes an empty cluster at the
+    same start, a group whose window is empty."""
     n, span = 1000, 384
     ops = list(scan_operands(dev, n, max(s, 4), span, d, seed=s + d))
     ops[4], ops[5] = ops[4][:s], ops[5][:s]
     ops[2] = torch.full((s,), n - span, dtype=torch.int32, device=dev)
     ops[3] = torch.full((s,), span, dtype=torch.int32, device=dev)
     ops[3][1::3] = 0
-    got = cuda_rough_scan(*ops, span)
-    want = rough_scan_reference(*ops, span)
+    got = cuda_rough_scan(*ops, span, fold)
+    want = rough_scan_reference(*ops, span, fold)
     torch.cuda.synchronize()
+    assert got.shape == (s, fold * 128 if fold else span)
     assert torch.equal(got, want)
     assert torch.isfinite(got[0]).all()
     if s > 1:
         assert torch.isinf(got[1]).all()
+
+
+def _same_bits(got, want):
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("fold", [1, 2])
+@pytest.mark.parametrize(
+    "d,span,kind",
+    [(128, 384, "random"), (1024, 384, "random"), (128, 300, "random"),
+     (1024, 520, "random"), (128, 384, "clusters"), (1024, 384, "clusters"),
+     (96, 700, "clusters")],
+)
+def test_folded_kernel_equals_twin(dev, d, span, kind, fold):
+    """The lane fold, bit for bit, on random operands (edge cases: size 0,
+    size == span, a cluster ending at row N-1, a single row there) and on
+    clustered ones whose tasks share windows; spans not a multiple of
+    128 among them."""
+    if kind == "random":
+        ops = scan_operands(dev, 5000, 300, span, d, seed=span + d + fold)
+    else:
+        ops = cluster_scan_operands(dev, 300, 128, 16, span, d,
+                                    seed=span + d + fold)
+    assert effective_fold(span, fold) == fold
+    got = cuda_rough_scan(*ops, span, fold)
+    want = rough_scan_reference(*ops, span, fold)
+    torch.cuda.synchronize()
+    assert got.shape == (ops[2].shape[0], fold * 128)
+    assert _same_bits(got, want)
+    if kind == "random":
+        assert torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
+        assert torch.isfinite(got[3, 0]) and torch.isinf(got[3, 1:]).all()
+
+
+@pytest.mark.parametrize("fold", [1, 2])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_fold_bucket_walk(dev, d, fold):
+    """Chosen (task, bucket) pairs get their best three values in the
+    window's three tiles, in each of the six orders, over both m16 tiles,
+    all eight warps, both n8 tiles and both accumulator columns, and two
+    groups (40 tasks on one window). Every other slot estimates to 200.
+    The kernel keeps the best (and second best) by slot, values exact,
+    and equals the twin bit for bit."""
+    s, span = 40, 384
+    pairs = [(0, 0), (9, 17), (15, 38), (16, 51), (23, 73), (31, 94),
+             (5, 109), (28, 127), (35, 66), (39, 3), (16, 8), (31, 120)]
+    orders = list(itertools.permutations(range(3)))
+    codes = torch.zeros((span, d), dtype=torch.int8)
+    qvals = torch.zeros((s, d), dtype=torch.int8)
+    factors = torch.zeros((span, 4))
+    factors[:, 0] = 1.0    # ip
+    factors[:, 3] = 200.0  # cdsq
+    scal = torch.zeros((s, 4))
+    scal[:, 1] = 1.0  # delta: the estimate is 200 + dot
+    expect = []
+    for k, (t, r) in enumerate(pairs):
+        qvals[t, k] = 1
+        slots = [tile * 128 + r for tile in orders[k % len(orders)]]
+        for rank, j in enumerate(slots):
+            codes[j, k] = -100 + 10 * rank  # estimates 100, 110, 120
+        expect.append((t, r, slots))
+    starts = torch.zeros(s, dtype=torch.int32)
+    sizes = torch.full((s,), span, dtype=torch.int32)
+    ops = [x.to(dev) for x in (codes, factors, starts, sizes, qvals, scal)]
+    got = cuda_rough_scan(*ops, span, fold)
+    want = rough_scan_reference(*ops, span, fold)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    mask = (1 << fold_slot_bits(span)) - 1
+    bits = got.cpu().view(torch.int32)
+    for t, r, slots in expect:
+        for rank in range(fold):
+            b = int(bits[t, rank * 128 + r])
+            assert b & mask == slots[rank], (t, r, rank)
+            value = torch.tensor(b & ~mask, dtype=torch.int32).view(
+                torch.float32)
+            assert float(value) == 100.0 + 10 * rank
 
 
 @pytest.mark.parametrize("d", [128, 1024])
@@ -167,13 +250,14 @@ def test_shared_memory_size_across_threads(dev):
 
 
 def test_launch_counter(dev):
-    ops = scan_operands(dev, 500, 8, 128, 64, seed=1)
+    ops = scan_operands(dev, 500, 8, 300, 64, seed=1)
     before = cuda_rough_scan.launches
-    cuda_rough_scan(*ops, 128)
-    cuda_rough_scan(*ops, 128)
+    cuda_rough_scan(*ops, 300)
+    cuda_rough_scan(*ops, 300, 2)
     assert cuda_rough_scan.launches == before + 2
     empty = [t[:0] if i >= 2 else t for i, t in enumerate(ops)]
-    assert cuda_rough_scan(*empty, 128).shape == (0, 128)
+    assert cuda_rough_scan(*empty, 300).shape == (0, 300)
+    assert cuda_rough_scan(*empty, 300, 2).shape == (0, 256)
     assert cuda_rough_scan.launches == before + 2
 
 
@@ -185,10 +269,13 @@ def test_kernel_rejects_misaligned_operands(dev):
         cuda_rough_scan(*ops, 128)
 
 
-def test_gpu_search_matches_cpu_search(dev):
+@pytest.mark.parametrize("select_reduce", [True, False])
+def test_gpu_search_matches_cpu_search(dev, select_reduce):
+    """The default search folds on both devices (capacity > 256), the
+    kernel on the card and its twin on the CPU; and unfolded."""
     rng = np.random.default_rng(0)
-    centers = rng.standard_normal((24, 96)).astype(np.float32)
-    base = (centers[rng.integers(0, 24, 6000)]
+    centers = rng.standard_normal((16, 96)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 6000)]
             + 0.3 * rng.standard_normal((6000, 96))).astype(np.float32)
     queries = torch.from_numpy(base[:64] + 0.05)
     idx = rt.build_index(
@@ -199,7 +286,9 @@ def test_gpu_search_matches_cpu_search(dev):
         f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
         if isinstance(getattr(idx, f.name), torch.Tensor)
     })
-    params = rt.SearchParams(probe=6, topk=10, rerank=32)
+    assert effective_fold(idx.capacity, 2) == 2
+    params = rt.SearchParams(probe=6, topk=10, rerank=32,
+                             select_reduce=select_reduce)
     d_gpu, i_gpu = rt.search(idx, queries.to(dev), params)
     d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
     same = i_gpu.cpu() == i_cpu

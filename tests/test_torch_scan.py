@@ -8,6 +8,11 @@ on the TPU, against the portable jnp scan the JAX package runs on the CPU,
 and against tests/reference_model.py. +inf slots must be identical; values
 agree within rtol 1e-5 (f32 rounding: the JAX paths may contract or reorder
 the estimator's float operations).
+
+The lane fold (``fold`` 1 or 2) is held bit for bit against a numpy oracle
+built from the port's own unfolded twin, and against
+``pallas_rough_scan(reduce=1|2)`` in interpret mode within that tolerance
+plus the packing quantum, where a near-tie may swap a bucket's kept slot.
 """
 
 import importlib
@@ -25,9 +30,16 @@ from rabitq_tpu.index.index import padded_offsets
 from rabitq_tpu.ops import pairwise_l2sq, quantize_query_residuals, rotate
 from rabitq_tpu.ops.scan_kernel import pallas_rough_scan
 from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
-from rabitq_tpu_torch.ops.scan_kernel import QPC, group_tasks
+from rabitq_tpu_torch.ops.scan_kernel import (
+    QPC,
+    effective_fold,
+    fold_slot_bits,
+    group_tasks,
+)
 from reference_model import ref_rough_distance
 from torch_parity import gist_like_corpus, port_index_from_jax
+
+jscan = importlib.import_module("rabitq_tpu.ops.scan_kernel")
 
 # The packages export a ``search`` function that shadows the module name.
 jsearch = importlib.import_module("rabitq_tpu.index.search")
@@ -384,3 +396,185 @@ def test_search_rough_scan_matches_jnp_scan_at_960d():
         got.n_scanned.numpy(), np.asarray(want.n_scanned)
     )
     _assert_scan_close(got.rough.numpy(), want.rough)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, True])
+def test_fold_gate_and_slot_bits_at_capacity_equal_scan_span(depth):
+    """The port scans ``capacity`` slots, the JAX kernel scan_span(capacity)
+    (its multiple of 128): the fold gate is the same for every capacity,
+    and so are the slot bits wherever the fold is on. Both match the JAX
+    package's own functions."""
+    for cap in range(1, 4097):
+        span = jsearch.scan_span(cap)
+        f = effective_fold(cap, depth)
+        assert f == effective_fold(span, depth) == jscan.effective_fold(span, depth)
+        if f:
+            assert fold_slot_bits(cap) == fold_slot_bits(span)
+            assert fold_slot_bits(span) == jscan.fold_slot_bits(span)
+
+
+def _np_lane_fold(unfolded, sizes, span, depth):
+    """Numpy oracle of the fold, from the unfolded output: for each (task,
+    lane) the slots j = lane, lane + 128, ... below the task's size enter
+    the strict < chain in slot order, as the estimate's bits with the low
+    fold_slot_bits(span) bits replaced by j."""
+    f = effective_fold(span, depth)
+    if not f:
+        return unfolded
+    mask = (1 << fold_slot_bits(span)) - 1
+    bits = np.ascontiguousarray(unfolded, np.float32).view(np.int32)
+    out = np.full((unfolded.shape[0], f * 128), np.inf, np.float32)
+    for t in range(unfolded.shape[0]):
+        for lane in range(128):
+            v1 = v2 = np.float32(np.inf)
+            for j in range(lane, min(int(sizes[t]), span), 128):
+                pe = np.int32((int(bits[t, j]) & ~mask) | j).view(np.float32)
+                if pe < v1:
+                    v1, v2 = pe, v1
+                elif pe < v2:
+                    v2 = pe
+            out[t, lane] = v1
+            if f == 2:
+                out[t, 128 + lane] = v2
+    return out
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("span", [300, 384, 256])
+def test_folded_twin_matches_numpy_oracle(rng, span, depth):
+    """Bit for bit, with an empty task, two single-row tasks (one at row
+    N-1), a size above the span and a NaN estimate (it drops from its
+    bucket). Span 300 is not a multiple of 128; span 256 at depth 2 does
+    not fold, and its output is the unfolded array."""
+    n, d = 1200, 64
+    sizes = [0, 1, 1, span, 129, 257, span + 40, 77, 200, 131]
+    starts = [5, 0, n - 1, n - span, 300, 600, 100, 900, 10, 40]
+    ops = _random_operands(rng, n, d, span, sizes, starts)
+    ops[1][603, 0] = np.nan  # task 5, slot 3
+    tensors = list(map(torch.from_numpy, ops))
+    unfolded = rough_scan_reference(*tensors, span).numpy()
+    assert np.isnan(unfolded[5, 3])
+    got = rough_scan_reference(*tensors, span, fold=depth).numpy()
+    want = _np_lane_fold(unfolded, ops[3], span, depth)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    f = effective_fold(span, depth)
+    assert got.shape == (len(sizes), f * 128 if f else span)
+    if f:
+        assert not np.isnan(got).any() and np.isinf(got[0]).all()
+        assert np.isfinite(got[1, 0]) and np.isinf(got[1, 1:]).all()
+    wrapper = cuda_rough_scan(*tensors, span, depth).numpy()
+    np.testing.assert_array_equal(wrapper.view(np.int32), got.view(np.int32))
+
+
+def _assert_fold_close(got, want, unfolded, sizes, span, depth):
+    """Two folds of estimates that agree within _assert_scan_close's
+    tolerance: the same +inf; the values with their slot bits cleared
+    within that tolerance plus the packing quantum 2^(slot_bits - 23)
+    relative; and each bucket's kept slots equal, unless its depth-th and
+    (depth + 1)-th best unfolded values lie within that tolerance (a
+    near-tie the two may break either way)."""
+    mask = (1 << fold_slot_bits(span)) - 1
+    rtol = 1e-5 + 2.0 ** (fold_slot_bits(span) - 23)
+    atol = 1e-6 * np.abs(unfolded[np.isfinite(unfolded)]).max()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    gb, wb = got.view(np.int32), want.view(np.int32)
+    fin = np.isfinite(want)
+    np.testing.assert_allclose((gb & ~mask).view(np.float32)[fin],
+                               (wb & ~mask).view(np.float32)[fin],
+                               rtol=rtol, atol=atol)
+    s = got.shape[0]
+    g_slot = (gb & mask).reshape(s, depth, 128)
+    w_slot = (wb & mask).reshape(s, depth, 128)
+    fin = fin.reshape(s, depth, 128)
+    ties = 0
+    for t in range(s):
+        for lane in range(128):
+            kept = fin[t, :, lane]
+            if set(g_slot[t, kept, lane]) == set(w_slot[t, kept, lane]):
+                continue
+            vals = np.sort(unfolded[t, lane:min(int(sizes[t]), span):128])
+            assert vals.size > depth
+            gap = abs(vals[depth] - vals[depth - 1])
+            assert gap <= rtol * abs(vals[depth]) + atol, (t, lane)
+            ties += 1
+    assert ties <= 0.01 * s * 128
+
+
+@pytest.fixture(scope="module")
+def jax_fold_index():
+    """A JAX index of capacity 512 (> 256: both depths fold) and 2 queries."""
+    rng = np.random.default_rng(11)
+    base, centers = make_clustered_dataset(rng, n=2400, dim=64, k=6)
+    jidx = rq.build_index(base, centers, key=jax.random.key(1), bits=4)
+    assert jidx.capacity > 256
+    return jidx, base[:2] + 0.01
+
+
+def _pallas_fold(jidx, scan_inputs, reduce):
+    cids, starts, sizes, qvals, scal = scan_inputs
+    out, _, _ = pallas_rough_scan(
+        jidx.codes_pm1, jidx.factors_tiled, starts, sizes, qvals, scal,
+        span=jidx.capacity, k_max=jidx.k, interpret=True, cids=cids,
+        starts_k=padded_offsets(jidx.offsets)[:-1], aligned=True,
+        reduce=reduce,
+    )
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("reduce", [1, 2])
+def test_folded_twin_matches_pallas_kernel_interpret(jax_fold_index, reduce):
+    """The JAX kernel's own fold (its default search's) on the aligned
+    path, against the port's folded twin."""
+    jidx, queries = jax_fold_index
+    inputs = _scan_inputs(jidx, queries, 4)
+    want = _pallas_fold(jidx, inputs, reduce)
+    pidx = port_index_from_jax(jidx)
+    ops = [pidx.codes, pidx.factors,
+           *(torch.from_numpy(np.array(a)) for a in inputs[1:])]
+    span = jidx.capacity
+    got = cuda_rough_scan(*ops, span, reduce).numpy()
+    assert got.shape == want.shape == (8, reduce * 128)
+    unfolded = cuda_rough_scan(*ops, span).numpy()
+    _assert_fold_close(got, want, unfolded, np.asarray(inputs[2]), span,
+                       reduce)
+
+
+def test_estimate_candidates_fold_matches_jax_composition(jax_fold_index):
+    """Folded candidate selection against the JAX package's composition:
+    the interpret-mode fold, ``_exact_two_stage`` and the slot decode of
+    rabitq_tpu/index/search.py. Bounds within rtol 1e-5 plus the packing
+    quantum; positions equal but for swaps between candidates whose bounds
+    lie within that tolerance."""
+    jidx, queries = jax_fold_index
+    probe, rerank = 4, 40
+    inputs = _scan_inputs(jidx, queries, probe)
+    b, span = queries.shape[0], jidx.capacity
+    rough = _pallas_fold(jidx, inputs, 2).reshape(b, probe * 256)
+    lb, flat = map(np.asarray, jsearch._exact_two_stage(
+        jnp.asarray(rough), probe, 256, rerank))
+    mask = (1 << fold_slot_bits(span)) - 1
+    bits = lb.view(np.int32)
+    starts = np.asarray(inputs[1]).reshape(b, probe)
+    pidx = port_index_from_jax(jidx)
+    pos_w = np.minimum(
+        np.take_along_axis(starts, flat // 256, 1) + (bits & mask), pidx.n - 1
+    )
+    lb_w = (bits & ~mask).view(np.float32)
+
+    cand = tsearch.estimate_candidates(
+        pidx, torch.from_numpy(queries),
+        rt.SearchParams(probe=probe, topk=5, rerank=rerank),
+    )
+    pos_g, lb_g = cand.pos.numpy(), cand.lower_bound.numpy()
+    fin = np.isfinite(lb_g)
+    assert not (lb_g[fin].view(np.int32) & mask).any()  # decoded: folded
+    np.testing.assert_array_equal(fin, np.isfinite(lb_w))
+    rtol = 1e-5 + 2.0 ** (fold_slot_bits(span) - 23)
+    atol = 1e-6 * np.abs(lb_w[fin]).max()
+    np.testing.assert_allclose(lb_g, lb_w, rtol=rtol, atol=atol)
+    for q in range(b):
+        got, want = set(pos_g[q, fin[q]]), set(pos_w[q, fin[q]])
+        only_g = sorted(lb_g[q][np.isin(pos_g[q], list(got - want))])
+        only_w = sorted(lb_w[q][np.isin(pos_w[q], list(want - got))])
+        assert len(only_g) == len(only_w) <= 2
+        np.testing.assert_allclose(only_g, only_w, rtol=rtol, atol=atol)

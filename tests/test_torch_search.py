@@ -4,7 +4,9 @@ A JAX-built index goes through ``index_from_arrays`` and both packages
 search it with exact candidate selection. Ids must be equal except at
 near-ties (distances of the two results within rtol 1e-5 wherever the ids
 differ), the returned distances within rtol 1e-5, and recall against brute
-force equal within 0.005.
+force equal within 0.005. JAX's CPU path never lane-folds the scan, so the
+port's side of those comparisons runs with ``select_reduce=False``; the
+fold is held against the JAX kernel's in tests/test_torch_scan.py.
 """
 
 import importlib
@@ -25,6 +27,7 @@ import rabitq_tpu_torch as rt
 from bench import make_dataset
 from conftest import brute_force_topk
 from rabitq_tpu_torch.index.search import SearchStats
+from rabitq_tpu_torch.ops.scan_kernel import effective_fold
 from rabitq_tpu_torch.metrics import METRICS, record_search_stats
 from torch_parity import (
     gist_like_corpus,
@@ -32,8 +35,9 @@ from torch_parity import (
     random_orthogonal,
 )
 
-# The package exports a ``search`` function that shadows the module name.
+# The packages export a ``search`` function that shadows the module name.
 jsearch = importlib.import_module("rabitq_tpu.index.search")
+tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
 
 REPO = Path(__file__).resolve().parents[1]
 TOPK = 10
@@ -87,7 +91,8 @@ def test_search_matches_jax_on_jax_index(corpus, bits, spill, metric, dither):
     jp = rq.SearchParams(
         probe=6, topk=TOPK, rerank=40, dither=dither, select_mode="exact"
     )
-    tp = rt.SearchParams(probe=6, topk=TOPK, rerank=40, dither=dither)
+    tp = rt.SearchParams(probe=6, topk=TOPK, rerank=40, dither=dither,
+                         select_reduce=False)
     dj, ij = rq.search(jidx, jnp.asarray(queries), jp)
     dt, it, stats = rt.search_with_stats(pidx, torch.from_numpy(queries), tp)
     _assert_results_match(dt, it, dj, ij)
@@ -116,7 +121,7 @@ def test_port_build_and_search_match_jax(corpus):
     )
     dt, it = rt.search(
         pidx, torch.from_numpy(queries),
-        rt.SearchParams(probe=8, topk=TOPK, rerank=32),
+        rt.SearchParams(probe=8, topk=TOPK, rerank=32, select_reduce=False),
     )
     _assert_results_match(dt, it, dj, ij)
     assert abs(_recall(truth, it.numpy()) - _recall(truth, np.asarray(ij))) <= 0.005
@@ -137,7 +142,7 @@ def test_port_build_and_search_match_jax_at_960d():
     )
     dt, it = rt.search(
         pidx, torch.from_numpy(queries),
-        rt.SearchParams(probe=8, topk=100, rerank=150),
+        rt.SearchParams(probe=8, topk=100, rerank=150, select_reduce=False),
     )
     assert dt.shape == it.shape == (queries.shape[0], 100)
     _assert_results_match(dt, it, dj, ij)
@@ -212,6 +217,85 @@ def test_search_params_cap_probe_and_rerank(corpus):
     d_big, i_big = rt.search(idx, q, rt.SearchParams(probe=50, rerank=10**6))
     d_cap, i_cap = rt.search(idx, q, rt.SearchParams(probe=8, rerank=idx.n))
     assert torch.equal(i_big, i_cap) and torch.equal(d_big, d_cap)
+
+
+@pytest.fixture(scope="module")
+def fold_index(corpus):
+    """A port index of capacity > 256 (8 clusters of ~500 rows), where the
+    default search folds at depth 2."""
+    base, _, _ = corpus
+    rng = np.random.default_rng(6)
+    idx = rt.build_index(base, _centers(rng, base, 8), bits=4, spill=0.2,
+                         balance=1.5, device="cpu")
+    assert effective_fold(idx.capacity, 2) == 2
+    return idx
+
+
+def _fold_of(monkeypatch, idx, queries, params):
+    """The fold depth estimate_candidates asks the scan for, and the
+    columns a query of the scan output then has."""
+    seen = []
+    stage = tsearch.rough_scan
+
+    def spy(index, q, p, fold=0):
+        out = stage(index, q, p, fold)
+        seen.append((fold, out.rough.shape[1]))
+        return out
+
+    monkeypatch.setattr(tsearch, "rough_scan", spy)
+    cand = tsearch.estimate_candidates(idx, queries, params)
+    assert len(seen) == 1 and cand.pos.shape[1] == params.rerank
+    return seen[0]
+
+
+@pytest.mark.parametrize(
+    "kw,fold",
+    [({}, 2), ({"fold_depth": 1}, 1), ({"fold_depth": 7}, 2),
+     ({"fold_depth": 0}, 1), ({"select_reduce": False}, 0),
+     ({"rerank": 3 * 256 + 1}, 0), ({"fold_depth": 1, "rerank": 3 * 128}, 1),
+     ({"fold_depth": 1, "rerank": 3 * 128 + 1}, 0)],
+)
+def test_fold_gate(monkeypatch, corpus, fold_index, kw, fold):
+    """The gate of the JAX package's estimate_candidates: select_reduce,
+    fold_depth clamped to 1..2, and rerank <= probe * depth * 128; the
+    scan output then has probe * depth * 128 columns, or probe * capacity."""
+    _, queries, _ = corpus
+    params = rt.SearchParams(probe=3, topk=TOPK, rerank=32)._replace(**kw)
+    got = _fold_of(monkeypatch, fold_index, torch.from_numpy(queries[:4]),
+                   params)
+    width = fold * 128 if fold else fold_index.capacity
+    assert got == (fold, 3 * width)
+
+
+def test_fold_gate_off_when_capacity_fits_the_fold(monkeypatch, corpus):
+    """Capacity <= depth * 128: the scan writes raw estimates, which must
+    not be slot-decoded (effective_fold), at either depth."""
+    base, queries, _ = corpus
+    idx = rt.build_index(base[:600], _centers(np.random.default_rng(7),
+                                              base[:600], 8), device="cpu")
+    assert 128 < idx.capacity <= 256
+    q = torch.from_numpy(queries[:4])
+    assert _fold_of(monkeypatch, idx, q, rt.SearchParams(probe=3, rerank=32)
+                    ) == (0, 3 * idx.capacity)
+    assert _fold_of(monkeypatch, idx, q, rt.SearchParams(
+        probe=3, rerank=32, fold_depth=1)) == (1, 3 * 128)
+
+
+def test_folded_search_against_unfolded(corpus, fold_index):
+    """End to end on the CPU path (the twins): the default search folds,
+    and against select_reduce=False it returns the same ids but for a few
+    near-ties or bucket losses, the same distance for every id both
+    return, and recall within 0.01."""
+    _, queries, truth = corpus
+    q = torch.from_numpy(queries)
+    params = rt.SearchParams(probe=4, topk=TOPK, rerank=40)
+    d_on, i_on = rt.search(fold_index, q, params)
+    d_off, i_off = rt.search(fold_index, q,
+                             params._replace(select_reduce=False))
+    same = i_on == i_off
+    assert same.float().mean() >= 0.95
+    assert torch.equal(d_on[same], d_off[same])
+    assert abs(_recall(truth, i_on.numpy()) - _recall(truth, i_off.numpy())) <= 0.01
 
 
 def _env():
