@@ -22,10 +22,15 @@ then non-zero and no result line is printed):
        counts the output the mode writes;
        gather_l2 at the gist shape (N=1.2M, D=1024, B=1024, R=150) and
        the sift shape (D=128, B=2048, R=32), with duplicate positions and
-       row N-1, to rtol 1e-5 and atol 1e-5 * max|out|;
+       row N-1, and at the sift shape on cluster-local positions (each
+       query's 32 rows from 28 windows of 300 rows), to rtol 1e-5 and atol
+       1e-5 * max|out|; its time is the kernel's device time with the L2
+       cold (profile), beside its bound from the run's positions (each
+       distinct row once);
   4. [int4]   rabitq_tpu_torch.tools.int4probe.run (int4_dot_direct and
-     int4_dot_staged equal to the twin and numpy), then both kernels and
-     the twin timed at the probe shape and a scan-window shape;
+     int4_dot_staged equal to the twin and numpy), then both kernels
+     (device time, L2 cold), the twin and torch._int_mm on the unpacked
+     int8 operands timed at the probe shape and a scan-window shape;
   5. [sift]   the SIFT-like main path at full size: 1M x 128 corpus,
      16,384 queries, k-means (k=4096, 260k sample, 15 iterations),
      build_index(bits=4, spill=0.2, balance=1.5), search_many at probe 28,
@@ -49,9 +54,11 @@ then non-zero and no result line is printed):
   stage (per-task and global top-k) and the rough-scan stage (the kernel
   and the grouping glue launched in its wrapper) beside the bound of that
   batch's operands (distinct probed rows, the output the mode writes),
-  and the groups per cluster. At the checked probe every run is checked,
-  and one batch of each mode runs under
-  torch.cuda.set_sync_debug_mode("error"), so a host sync fails the run.
+  and the groups per cluster, and the gather_l2 kernel's device time (one
+  launch) beside the bound of that batch's positions (each distinct row
+  once). At the checked probe every run is checked, and one batch of each
+  mode runs under torch.cuda.set_sync_debug_mode("error"), so a host sync
+  fails the run.
 
 Then a JSON line of per-kernel results, the nvidia-smi name/power-limit
 line, and last {"ok": true, "device": {...}}. Without a CUDA device the
@@ -92,6 +99,14 @@ SCAN_PROFILED_CALLS = 5
 SCAN_STAGE = "chip_smoke: rough_scan stage"
 SELECT_STAGE = "chip_smoke: selection stage"
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
+GATHER_KERNEL = "gather_l2_kernel"
+INT4_KERNEL = "int4_dot_kernel"
+# Standalone kernel times are device times (profile) of calls that each
+# find the 50 MB L2 cold, as search does: a read of this many bytes goes
+# before every call. Back-to-back calls timed by CUDA events measure the
+# wrapper's host time instead when the kernel is the shorter.
+L2_FLUSH_BYTES = 256 << 20
+COLD_CALLS = 20
 # The scan's modes: fold depth -> name. Search folds at depth 2 by default.
 SCAN_MODES = {2: "fold 2", 1: "fold 1", 0: "full"}
 
@@ -141,6 +156,38 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_device_ms(fn, name=None, calls=COLD_CALLS):
+    """Mean device ms of one call of fn() with the L2 cold: ``calls``
+    calls under the profiler, each after a read of L2_FLUSH_BYTES. Counts
+    the device events whose name holds ``name``, or with name None every
+    device event that the flush does not launch; fn must launch one such
+    kernel a call. CUPTI has been seen to drop a record or two of a run,
+    so the mean is over the records kept; fewer than calls - 2 raise
+    ProfileLostRecords."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.sum()
+        torch.cuda.synchronize()
+    flush_keys = {e.key for e in prof.key_averages()}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    kept = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and (name in e.key if name else e.key not in flush_keys)]
+    count = sum(c for _, c in kept)
+    if not calls - 2 <= count <= calls:
+        raise ProfileLostRecords(f"{calls} cold calls of {name}: {count} "
+                                 f"device records")
+    return sum(t for t, _ in kept) / 1e3 / count
 
 
 def _scan_values(gen, dev, n_rows, s, dim, bits):
@@ -301,6 +348,36 @@ def gather_operands(dev, n, dim, b, r, seed=0):
     return base, pos, q
 
 
+def cluster_gather_positions(dev, n, b, r, windows=28, width=300, seed=0):
+    """[B, R] positions as search makes them: each query's R rows drawn
+    from ``windows`` contiguous windows of ``width`` rows (its probed
+    clusters) at random starts in [0, N - width]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.randint(0, n - width + 1, (b, windows), generator=gen,
+                           device=dev)
+    pick = torch.randint(0, windows, (b, r), generator=gen, device=dev)
+    off = torch.randint(0, width, (b, r), generator=gen, device=dev)
+    return torch.gather(starts, 1, pick) + off
+
+
+def gather_bound(pos, n, dim):
+    """The least time of one gather_l2 call on these [B, R] positions into
+    N rows of ``dim`` floats: each distinct row that a position in [0, N)
+    names read once (however many positions name it), every position read
+    and every output written once, the [B, D] queries read once; against 3
+    fp32 operations (subtract, multiply, add) an element of each valid
+    position. Returns (bound ms, "bytes" or "operations", GB, distinct
+    rows)."""
+    b, r = pos.shape
+    valid = pos[(pos >= 0) & (pos < n)]
+    rows = int(torch.unique(valid).numel())
+    nbytes = rows * dim * 4 + b * r * (8 + 4) + b * dim * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * valid.numel() * dim / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e9, rows)
+
+
 def assert_gather_close(got, want):
     """rtol 1e-5, atol 1e-5 * max|want|: the kernel and the twin sum the
     same f32 squares in different orders. Returns max |got - want|."""
@@ -364,7 +441,8 @@ def profile_batch(rt, index, q, params, label, smi):
     scan wrapper's call and the candidate selection run inside
     record_function ranges, so the kernels they launch are found by their
     CPU parents. Returns the rough-scan stage's kernel ms (rough_scan_kernel)
-    and glue ms (the other kernels launched in the wrapper), the selection
+    and glue ms (the other kernels launched in the wrapper), the rerank's
+    gather_l2 kernel ms (one launch), the selection
     stage's ms with those of its per-task and its global top-k, the device
     ops of the batch and its device busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -409,6 +487,10 @@ def profile_batch(rt, index, q, params, label, smi):
     if len(scan) != 1 or scan[0][1] != 1:
         raise ProfileLostRecords(f"profiled batch: scan kernel launches "
                                  f"{scan}")
+    gather = [(t, c) for k, t, c in dev_ops if GATHER_KERNEL in k]
+    if len(gather) != 1 or gather[0][1] != 1:
+        raise ProfileLostRecords(f"profiled batch: gather_l2 kernel launches "
+                                 f"{gather}")
     glue = sum(us for k, us in stage_kernels(stage_event(prof, SCAN_STAGE))
                if SCAN_KERNEL not in k)
     if glue <= 0:
@@ -421,7 +503,8 @@ def profile_batch(rt, index, q, params, label, smi):
         raise AssertionError(f"selection stage holds {len(topks)} topk calls")
     per_task, glob = (sum(us for _, us in stage_kernels(c)) / 1e3
                       for c in topks)
-    return dict(kernel_ms=scan[0][0], glue_ms=glue / 1e3,
+    return dict(kernel_ms=scan[0][0], gather_ms=gather[0][0],
+                glue_ms=glue / 1e3,
                 select_ms=sum(us for _, us in stage_kernels(sel)) / 1e3,
                 per_task_ms=per_task, global_ms=glob,
                 device_ops=sum(c for _, _, c in dev_ops), busy_ms=busy_ms)
@@ -430,30 +513,40 @@ def profile_batch(rt, index, q, params, label, smi):
 def scan_in_search(rt, index, q, params):
     """The rough-scan operands of one search batch, captured at the
     wrapper: their bound (with the output the batch's mode writes),
-    distinct rows and groups per cluster."""
+    distinct rows and groups per cluster; and the (B, R, D) of the
+    batch's gather_l2 call with the bound of its positions (distinct
+    rows)."""
     from rabitq_tpu_torch.ops.scan_kernel import effective_fold
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
-    wrapper = tsearch.cuda_rough_scan
-    seen = []
+    wrapper, gather = tsearch.cuda_rough_scan, tsearch.cuda_gather_l2
+    seen, gathered = [], []
 
     def capture(*args):
         seen.append(args)
         return wrapper(*args)
 
+    def capture_gather(base, pos, qp, **kwargs):
+        gathered.append((pos, *base.shape))
+        return gather(base, pos, qp, **kwargs)
+
     tsearch.cuda_rough_scan = capture
+    tsearch.cuda_gather_l2 = capture_gather
     try:
         rt.search(index, q, params)
     finally:
-        tsearch.cuda_rough_scan = wrapper
+        tsearch.cuda_rough_scan, tsearch.cuda_gather_l2 = wrapper, gather
     codes, _, starts, sizes, _, _, span, fold = seen[0]
+    pos, n, dim = gathered[0]
+    g_bound_ms, _, _, g_rows = gather_bound(pos, n, dim)
     f = effective_fold(span, fold)
     bound_ms, bound_by, rows, gb = scan_bound(
         codes, starts, sizes, span, f * 128 if f else span)
     g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
     return dict(bound_ms=bound_ms, bound_by=bound_by, rows=rows, gb=gb,
                 groups_max=g_max, groups_mean=g_mean, tasks=starts.shape[0],
-                fold=f)
+                fold=f, gather_shape=(*pos.shape, dim),
+                gather_rows=g_rows, gather_bound_ms=g_bound_ms)
 
 
 def check_no_host_sync(rt, index, q, params, label):
@@ -561,35 +654,50 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False):
                 bound_by=bound_by)
 
 
-def check_gather_l2(dev, smi, n, dim, b, r):
+def check_gather_l2(dev, smi, n, dim, b, r, positions="random"):
+    """The rerank kernel against its twin on random rows, with uniform
+    positions (duplicates, rows 0 and N-1) or cluster-local ones
+    (cluster_gather_positions), beside its bound (distinct rows). The
+    kernel's time is its device time with the L2 cold (cold_device_ms).
+    Its rate counting a row read at every position (what the kernel reads
+    unless L2 catches a repeat) is logged beside it."""
     from rabitq_tpu_torch.ops import cuda_gather_l2, gather_l2_reference
 
     base, pos, q = gather_operands(dev, n, dim, b, r, seed=dim)
+    if positions == "clusters":
+        pos = cluster_gather_positions(dev, n, b, r, seed=dim)
     got = cuda_gather_l2(base, pos, q)
     want = gather_l2_reference(base, pos, q)
     torch.cuda.synchronize()
     err = assert_gather_close(got, want)
     del got, want
-    # Timed as search calls it: without the range check's host sync.
-    kernel_ms = cuda_ms(
-        lambda: cuda_gather_l2(base, pos, q, check_pos=False), 20
-    )
+
+    def call():
+        return cuda_gather_l2(base, pos, q, check_pos=False)
+
+    kernel_ms = retry_lost_records(
+        lambda: cold_device_ms(call, GATHER_KERNEL), "gather_l2")
     twin_ms = cuda_ms(lambda: gather_l2_reference(base, pos, q), 3)
-    nbytes = b * r * (dim * 4 + 8 + 4) + b * dim * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 3 * b * r * dim / FP32_FLOPS  # subtract, multiply, add
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    log(f"[kernel gather_l2] N={n} D={dim} B={b} R={r}: within rtol 1e-5 / "
-        f"atol 1e-5*max of twin (max |diff| {err:.3g}); kernel "
-        f"{kernel_ms:.4f} ms, twin {twin_ms:.4f} ms per call; reads+writes "
-        f"{nbytes / 1e9:.4f} GB, bound {bound_ms:.4f} ms by bytes, kernel "
-        f"at {100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    bound_ms, bound_by, gb, rows = gather_bound(pos, n, dim)
+    every_gb = (b * r * (4 * dim + 12) + 4 * b * dim) / 1e9
+    log(f"[kernel gather_l2 {positions}] N={n} D={dim} B={b} R={r}: within "
+        f"rtol 1e-5 / atol 1e-5*max of twin (max |diff| {err:.3g}); kernel "
+        f"{kernel_ms:.4f} ms (device, L2 cold), twin {twin_ms:.4f} ms; "
+        f"{rows} distinct rows of {b * r} positions, reads+writes {gb:.4f} "
+        f"GB, bound {bound_ms:.4f} ms by {bound_by}, kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of bound; counting a row at "
+        f"every position {every_gb:.4f} GB, "
+        f"{every_gb / kernel_ms:.3f} TB/s [{smi}]")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=twin_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_ms=bound_ms, bound_by=bound_by, rows=rows)
 
 
 def int4_phase(dev, smi):
+    """The int4 probe, then both kernels exactly against numpy at the
+    probe shape and a scan-window shape: device time with the L2 cold
+    (cold_device_ms) beside the bound, the twin,
+    and torch._int_mm on the unpacked int8 operands (the same product at
+    twice the A bytes; the port never calls it) as the library yardstick."""
     from rabitq_tpu_torch.ops import cuda_int4_dot, int4_dot_reference, pack_int4
     from rabitq_tpu_torch.tools import int4probe
 
@@ -610,34 +718,48 @@ def int4_phase(dev, smi):
         a8, b8, want = int4probe.operands(seed=1, m=m, n=n, k=k)
         a = pack_int4(torch.from_numpy(a8).to(dev))
         b = pack_int4(torch.from_numpy(b8).to(dev))
+        a_i8 = torch.from_numpy(a8).to(dev)
+        b_i8t = torch.from_numpy(b8).to(dev).t()
         want = torch.from_numpy(want).to(dev)
         twin = int4_dot_reference(a, b)
         if not torch.equal(twin, want):
             raise AssertionError(f"int4 twin != numpy at {label}")
+        if not torch.equal(torch._int_mm(a_i8, b_i8t), want):
+            raise AssertionError(f"torch._int_mm != numpy at {label}")
         twin_ms = cuda_ms(lambda: int4_dot_reference(a, b), 5)
+        library_ms = retry_lost_records(
+            lambda: cold_device_ms(lambda: torch._int_mm(a_i8, b_i8t)),
+            "torch._int_mm")
         nbytes = (m + n) * k // 2 + m * n * 4
-        parts = [f"twin {twin_ms:.4f} ms"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2 * m * n * k / INT8_OPS_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        parts = [f"twin {twin_ms:.4f} ms",
+                 f"torch._int_mm (int8 operands) {library_ms:.4f} ms"]
         for staged, name in ((False, "int4_dot_direct"), (True, "int4_dot_staged")):
             got = cuda_int4_dot(a, b, staged=staged)
             err = float((got - want).abs().max())
             if err:
                 raise AssertionError(f"{name} != numpy at {label}: {err}")
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-            ms = cuda_ms(lambda: cuda_int4_dot(a, b, staged=staged), 20)
-            parts.append(f"{name} {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
-            if label == "window":
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = 2 * m * n * k / INT8_OPS_PER_S
-                res[name].update(
-                    ms=ms, plain_ms=twin_ms,
-                    bound_ms=1e3 * max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                )
+
+            def call():
+                return cuda_int4_dot(a, b, staged=staged)
+
+            ms = retry_lost_records(
+                lambda: cold_device_ms(call, INT4_KERNEL), name)
+            parts.append(f"{name} {ms:.4f} ms (device, L2 cold; "
+                         f"{100 * bound_ms / ms:.1f}% of bound)")
+            res[name][label] = dict(ms=ms, plain_ms=twin_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=library_ms)
         log(f"[int4 {label}] [{m}x{k}] . [{n}x{k}]^T packed: exact; operands "
             f"{(m + n) * k / 2e6:.3f} MB packed ({(m + n) * k / 1e6:.3f} MB "
-            f"as int8), {nbytes / 1e6:.3f} MB read+written: "
-            + ", ".join(parts) + f" [{smi}]")
-    return res
+            f"as int8), {nbytes / 1e6:.3f} MB read+written, bound "
+            f"{bound_ms:.4f} ms by {bound_by}: " + ", ".join(parts)
+            + f" [{smi}]")
+    return {name: {**r, **r["window"]} for name, r in res.items()}
 
 
 def run_search(rt, index, qd, truth, params, label, smi):
@@ -703,7 +825,12 @@ def run_search(rt, index, qd, truth, params, label, smi):
         f"{scan['per_task_ms']:.4f}, global top-k {scan['global_ms']:.4f}), "
         f"{scan['device_ops']} device ops, {scan['tasks']} tasks, groups "
         f"per cluster max {scan['groups_max']} mean "
-        f"{scan['groups_mean']:.2f} [{smi}]")
+        f"{scan['groups_mean']:.2f}; gather_l2 kernel {scan['gather_ms']:.4f} "
+        f"ms (profile, 1 launch) vs bound {scan['gather_bound_ms']:.4f} ms "
+        f"(B, R, D = {scan['gather_shape']}, {scan['gather_rows']} distinct "
+        f"rows; "
+        f"{100 * scan['gather_bound_ms'] / scan['gather_ms']:.1f}% of bound) "
+        f"[{smi}]")
     return res
 
 
@@ -728,7 +855,9 @@ def log_fold_pair(label, probe, on, off, smi):
         f"math); rough_scan stage ms "
         f"{pair('{:.4f}', lambda r: r['scan']['stage_ms'])}, kernel ms "
         f"{pair('{:.4f}', lambda r: r['scan']['kernel_ms'])}, bound ms "
-        f"{pair('{:.4f}', lambda r: r['scan']['bound_ms'])}; device busy ms "
+        f"{pair('{:.4f}', lambda r: r['scan']['bound_ms'])}; gather_l2 "
+        f"kernel ms {pair('{:.4f}', lambda r: r['scan']['gather_ms'])} (bound "
+        f"{on[0]['scan']['gather_bound_ms']:.4f}); device busy ms "
         f"{pair('{:.3f}', lambda r: r['scan']['busy_ms'])}; device ops "
         f"{pair('{}', lambda r: r['scan']['device_ops'])}; kernel launches "
         f"per batch rough_scan "
@@ -922,6 +1051,8 @@ def main() -> int:
             del ops
     gather_gist = check_gather_l2(dev, smi, 1_200_000, 1024, 1024, 150)
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
+    gather_sift_cl = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32,
+                                     positions="clusters")
     torch.cuda.empty_cache()
 
     # 4. The int4 probe.
@@ -952,11 +1083,15 @@ def main() -> int:
                 "launches_fold_off": sift_off["counts"][name]
                 + gist_off["counts"][name]}
 
-    def in_search(run):
-        return {key: run["scan"][key]
-                for key in ("stage_ms", "kernel_ms", "glue_ms", "bound_ms",
-                            "select_ms", "per_task_ms", "global_ms",
-                            "device_ops")}
+    def in_search(run, keys=("stage_ms", "kernel_ms", "glue_ms", "bound_ms",
+                             "select_ms", "per_task_ms", "global_ms",
+                             "device_ops")):
+        return {key: run["scan"][key] for key in keys}
+
+    search_runs = [(f"{path} {mode}", run)
+                   for path, runs in (("sift", (sift_on, sift_off)),
+                                      (gist_label, (gist_on, gist_off)))
+                   for mode, run in zip(("fold on", "fold off"), runs)]
 
     main_mode = scans["sift clusters", 2]
     log(json.dumps({"kernels": [
@@ -977,31 +1112,32 @@ def main() -> int:
                  for ops in ("sift random", "sift clusters", "gist random",
                              "gist clusters")}
              for fold in SCAN_MODES},
-         "in_search": {
-             f"{path} {mode}": in_search(run)
-             for path, runs in (("sift", (sift_on, sift_off)),
-                                (gist_label, (gist_on, gist_off)))
-             for mode, run in zip(("fold on", "fold off"), runs)}},
+         "in_search": {label: in_search(run) for label, run in search_runs}},
         {"name": "gather_l2", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/gather_l2.cu",
          "replaces": "rabitq_tpu/ops/rerank_kernel.py:103",
          **launches("gather_l2"),
-         "max_abs_err": max(gather_gist["max_abs_err"],
-                            gather_sift["max_abs_err"]),
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            (gather_gist, gather_sift, gather_sift_cl)),
          **{key: gather_gist[key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None,
-         "ms_sift_shape": gather_sift["ms"],
-         "plain_ms_sift_shape": gather_sift["plain_ms"],
-         "bound_ms_sift_shape": gather_sift["bound_ms"]},
+         "operands": "gist shape (D 1024, B 1024, R 150); ms = device time "
+                     "with the L2 cold; bound_ms counts distinct rows",
+         "sift_shape": {"random": gather_sift, "clusters": gather_sift_cl},
+         "in_search": {label: in_search(run, ("gather_ms", "gather_bound_ms",
+                                               "gather_shape", "gather_rows"))
+                       for label, run in search_runs}},
         {"name": "int4_dot_direct", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
          "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"],
-         "library_ms": None},
+         "operands": "window shape (65,536 x 1024 . 64 x 1024); ms = device "
+                     "time with the L2 cold; library_ms = torch._int_mm on "
+                     "the unpacked int8 operands"},
         {"name": "int4_dot_staged", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
          "replaces": "tools/int4probe.py:84", **int4["int4_dot_staged"],
-         "library_ms": None},
+         "operands": "as int4_dot_direct"},
     ]}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s in all")
     log(smi)

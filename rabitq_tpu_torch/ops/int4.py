@@ -18,10 +18,9 @@ import torch
 
 from rabitq_tpu_torch.ops import _cuda
 
-# Rows of A a block stages in shared memory (kTileM in csrc/int4_dot.cu),
-# the shared memory a Hopper block may use, and the column-tile limit.
-_TILE_M, _TILE_N = 16, 64
-_MAX_SMEM = 232_448
+# B rows a block takes (kTileN in csrc/int4_dot.cu; column tiles go on
+# gridDim.y) and the grid's y limit.
+_TILE_N = 64
 _MAX_GRID_Y = 65_535
 
 
@@ -68,6 +67,17 @@ def _check(a, b):
         raise ValueError(f"b on {b.device}, a on {a.device}")
 
 
+def check_kernel_shape(kb: int, n: int) -> None:
+    """Raise unless the kernels take K/2 = ``kb`` bytes a row and N = ``n``
+    B rows: K a multiple of 32 (a k step of the int8 mma), and the column
+    tiles within the grid. Any K fits shared memory: B is widened 2048
+    columns at a time, and A streams through registers or a fixed ring."""
+    if kb % 16:
+        raise ValueError(f"K/2 must be a multiple of 16 bytes, got {kb}")
+    if n > _TILE_N * _MAX_GRID_Y:
+        raise ValueError(f"N = {n} exceeds {_TILE_N * _MAX_GRID_Y}")
+
+
 def int4_dot_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin of the kernels: unpack, then A . B^T as [M, N]
     int32, on any device. The product runs in float64, which is exact:
@@ -84,10 +94,12 @@ def cuda_int4_dot(
 ) -> torch.Tensor:
     """A . B^T [M, N] int32 of packed int4 operands A [M, K/2], B [N, K/2].
 
-    CUDA tensors launch ``int4_dot_staged`` (A tile copied to shared
-    memory by cp.async first) or ``int4_dot_direct``; CPU tensors take the
-    twin. ``cuda_int4_dot.launches_direct`` and ``.launches_staged`` count
-    the launches of each kernel (not twin calls).
+    CUDA tensors launch ``int4_dot_staged`` (A chunks brought through a
+    cp.async ring in shared memory) or ``int4_dot_direct`` (A loaded
+    straight into registers), both on the int8 tensor cores; CPU tensors
+    take the twin. ``cuda_int4_dot.launches_direct`` and
+    ``.launches_staged`` count the launches of each kernel (not twin
+    calls).
     """
     if a.device.type == "cpu":
         return int4_dot_reference(a, b)
@@ -98,12 +110,7 @@ def cuda_int4_dot(
     n = b.shape[0]
     if torch.cuda.get_device_capability(a.device) != (9, 0):
         raise RuntimeError("the int4 kernels are built for sm_90a only")
-    if kb % 16:
-        raise ValueError(f"K/2 must be a multiple of 16 bytes, got {kb}")
-    if staged and _TILE_M * kb > _MAX_SMEM:
-        raise ValueError(f"K/2 = {kb}: the staged A tile exceeds shared memory")
-    if n > _TILE_N * _MAX_GRID_Y:
-        raise ValueError(f"N = {n} exceeds {_TILE_N * _MAX_GRID_Y}")
+    check_kernel_shape(kb, n)
     for t in (a, b):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")

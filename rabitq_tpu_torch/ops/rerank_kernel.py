@@ -23,8 +23,6 @@ from rabitq_tpu_torch.ops import _cuda
 
 # Bytes of the twin's gathered [chunk, R, D] f32 candidate rows.
 _TWIN_CHUNK_BYTES = 1 << 28
-# The kernel stages the query in 48 KB of static-launch shared memory.
-_MAX_DIM = 12288
 
 
 @functools.cache
@@ -63,18 +61,24 @@ def _check(base, pos, q):
 def gather_l2_reference(
     base: torch.Tensor, pos: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: same contract, any device.
+    """Plain PyTorch twin of the kernel: same contract, any device. A
+    position outside [0, N) gives NaN, as in the kernel.
 
     Queries run in chunks that bound the gathered [chunk, R, D] rows to
     _TWIN_CHUNK_BYTES.
     """
     _check(base, pos, q)
+    n, d = base.shape
     b, r = pos.shape
     out = torch.empty((b, r), dtype=torch.float32, device=base.device)
-    chunk = max(1, _TWIN_CHUNK_BYTES // (4 * max(r, 1) * base.shape[1]))
+    chunk = max(1, _TWIN_CHUNK_BYTES // (4 * max(r, 1) * max(d, 1)))
     for a in range(0, b, chunk):
-        diff = base[pos[a : a + chunk]] - q[a : a + chunk, None, :]
-        out[a : a + chunk] = torch.sum(diff * diff, dim=-1)
+        p = pos[a : a + chunk]
+        valid = (p >= 0) & (p < n)
+        diff = base[torch.where(valid, p, 0)] - q[a : a + chunk, None, :]
+        out[a : a + chunk] = torch.where(
+            valid, torch.sum(diff * diff, dim=-1), torch.nan
+        )
     return out
 
 
@@ -87,11 +91,12 @@ def cuda_gather_l2(
 ) -> torch.Tensor:
     """Squared L2 [B, R] f32 of ``base[pos[b, i]]`` against ``q[b]``.
 
-    CUDA tensors launch the sm_90a kernel; CPU tensors take the twin.
-    Positions outside [0, N) raise. On CUDA that check reads a min/max
-    pair back from the device, which stalls the stream; a caller whose
-    positions lie in range by construction passes ``check_pos=False``
-    (the kernel still reads no row outside [0, N): it gives NaN there).
+    CUDA tensors launch the sm_90a kernel; CPU tensors take the twin,
+    which gives NaN for a position outside [0, N). On CUDA such positions
+    raise. That check reads a min/max pair back from the device, which
+    stalls the stream; a caller whose positions lie in range by
+    construction passes ``check_pos=False`` (the kernel still reads no row
+    outside [0, N): it gives NaN there, as the twin does).
     ``cuda_gather_l2.launches`` counts kernel launches (not twin calls).
     """
     if base.device.type == "cpu":
@@ -103,8 +108,8 @@ def cuda_gather_l2(
     b, r = pos.shape
     if torch.cuda.get_device_capability(base.device) != (9, 0):
         raise RuntimeError("the gather-l2 kernel is built for sm_90a only")
-    if d % 4 or d > _MAX_DIM:
-        raise ValueError(f"dim must be a multiple of 4 <= {_MAX_DIM}, got {d}")
+    if d % 4:
+        raise ValueError(f"dim must be a multiple of 4, got {d}")
     for t in (base, pos, q):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")

@@ -13,7 +13,7 @@ cluster-structured ones whose tasks share windows, in each of its modes
 (the full output and the lane fold at depth 1 and 2), and so must the int4
 kernels (integer arithmetic). The gather-l2 kernel
 sums the same f32 squares as its twin in another order: rtol 1e-5, atol
-1e-5 * max|out|.
+1e-5 * max|out|; both give NaN exactly at positions outside [0, N).
 """
 
 import concurrent.futures
@@ -27,6 +27,7 @@ import torch
 import rabitq_tpu_torch as rt
 from chip_smoke import (
     assert_gather_close,
+    cluster_gather_positions,
     cluster_scan_operands,
     gather_operands,
     scan_operands,
@@ -318,6 +319,45 @@ def test_gather_l2_kernel_matches_twin(dev, n, d, b, r):
     torch.testing.assert_close(got[:, 0], last, rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("r", [1, 7, 31, 32, 33, 150, 300])
+@pytest.mark.parametrize("d", [4, 64, 128, 132, 256, 960, 1024, 2052])
+def test_gather_l2_kernel_edges(dev, d, r):
+    """Both instances (D <= 128: 8 lanes a row; D > 128: 32 lanes in
+    1024-float chunks; vectors past the row masked; D 2052 in three
+    chunks, the query reloaded per chunk), R across the 32-position item and a step (1 ... 300), B = 37
+    (not a multiple of the 8 items a block takes), and out-of-range
+    positions beside valid ones in one step of one lane group: NaN exactly
+    there, the twin's values everywhere else."""
+    n, b = 3000, 37
+    gen = torch.Generator(device=dev).manual_seed(d * 1000 + r)
+    base = torch.randn((n, d), generator=gen, device=dev)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    pos = torch.randint(0, n, (b, r), generator=gen, device=dev)
+    bad = [(5, 0, -1), (5, min(1, r - 1), n), (36, r - 1, n + 7)]
+    if r > 32:
+        bad.append((20, 32, -(2**40)))  # the second item's first position
+    for i, j, v in bad:
+        pos[i, j] = v
+    got = cuda_gather_l2(base, pos, q, check_pos=False)
+    want = gather_l2_reference(base, pos, q)
+    torch.cuda.synchronize()
+    nan = torch.zeros((b, r), dtype=torch.bool, device=dev)
+    for i, j, _ in bad:
+        nan[i, j] = True
+    assert torch.equal(got.isnan(), nan) and torch.equal(want.isnan(), nan)
+    assert_gather_close(got[~nan], want[~nan])
+
+
+def test_gather_l2_cluster_local_positions(dev):
+    """The sift shape on positions drawn from 28 windows a query."""
+    base, _, q = gather_operands(dev, 1_200_000, 128, 2048, 32, seed=9)
+    pos = cluster_gather_positions(dev, 1_200_000, 2048, 32, seed=9)
+    got = cuda_gather_l2(base, pos, q)
+    want = gather_l2_reference(base, pos, q)
+    torch.cuda.synchronize()
+    assert_gather_close(got, want)
+
+
 def test_gather_l2_launch_counter_and_rejections(dev):
     base, pos, q = gather_operands(dev, 500, 64, 6, 10, seed=3)
     before = cuda_gather_l2.launches
@@ -341,6 +381,8 @@ def test_gather_l2_launch_counter_and_rejections(dev):
     misaligned = torch.zeros(6 * 64 + 1, device=dev)[1:].view(6, 64)
     with pytest.raises(ValueError, match="aligned"):
         cuda_gather_l2(base, pos, misaligned)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cuda_gather_l2(base[:, :62].contiguous(), pos, q[:, :62].contiguous())
     assert cuda_gather_l2.launches == before + 2
 
 
@@ -360,6 +402,69 @@ def test_int4_kernels_equal_twin(dev, m, n, k, staged):
     got = cuda_int4_dot(a, b, staged=staged)
     assert torch.equal(got, int4_dot_reference(a, b))
     assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def _int4_exact(dev, a8, b8, staged):
+    a = pack_int4(torch.from_numpy(a8).to(dev))
+    b = pack_int4(torch.from_numpy(b8).to(dev))
+    got = cuda_int4_dot(a, b, staged=staged).cpu().numpy()
+    want = a8.astype(np.int32) @ b8.astype(np.int32).T
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_int4_one_hot_pins_widening_and_fragments(dev, staged):
+    """Row i of A holds one +-1, at column (i + shift) % K; column k of B
+    one +-1, in row k % N. So each row lands in exactly one output,
+    (i, ((i + shift) % K) % N), with the product of the two signs. Over
+    all K shifts every (row, column) of A takes its turn: both nibbles of
+    a byte, every word and lane quad of a chunk, two chunks, two 256-row
+    tiles (the second ragged), both m16 tiles and halves of a warp, all
+    eight n8 tiles."""
+    m, n, k = 300, 64, 256
+    rng = np.random.default_rng(7)
+    rows = np.arange(m)
+    for shift in range(k):
+        cols = (rows + shift) % k
+        a8 = np.zeros((m, k), np.int8)
+        a8[rows, cols] = rng.choice(np.array([-1, 1], np.int8), m)
+        b8 = np.zeros((n, k), np.int8)
+        b8[np.arange(k) % n, np.arange(k)] = rng.choice(
+            np.array([-1, 1], np.int8), k)
+        got = _int4_exact(dev, a8, b8, staged)
+        assert np.count_nonzero(got) == m
+        assert (got[rows, cols % n] == a8[rows, cols] * b8[cols % n, cols]).all()
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("k", [32, 1024, 4096])
+@pytest.mark.parametrize("va,vb", [(-8, -8), (7, 7), (-8, 7)])
+def test_int4_extreme_operands(dev, va, vb, k, staged):
+    """All -8 / all 7: every output is va * vb * K (64 K, 49 K, -56 K);
+    K 32 is one k step, K 4096 two widenings of B (2048 columns each)."""
+    m, n = 300, 65
+    got = _int4_exact(dev, np.full((m, k), va, np.int8),
+                      np.full((n, k), vb, np.int8), staged)
+    assert (got == va * vb * k).all()
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("n", [1, 8, 63, 64, 65, 512])
+@pytest.mark.parametrize("m", [1, 255, 256, 257, 513])
+def test_int4_ragged_tiles(dev, m, n, staged):
+    """M around the 256-row tile, N around the 8- and 64-column tiles
+    (odd N stores element by element), K 160: a full 128-column chunk
+    and a 32-column one."""
+    a8, b8, _ = int4probe.operands(seed=m * 1000 + n, m=m, n=n, k=160)
+    _int4_exact(dev, a8, b8, staged)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_int4_wide_k(dev, staged):
+    """K 4160: B widened three times a tile, the last 64 columns alone."""
+    a8, b8, _ = int4probe.operands(seed=3, m=700, n=70, k=4160)
+    _int4_exact(dev, a8, b8, staged)
 
 
 def test_int4_probe_runs_both_kernels(dev):

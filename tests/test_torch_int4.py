@@ -27,6 +27,7 @@ from rabitq_tpu_torch.ops import (
     pack_int4,
     unpack_int4,
 )
+from rabitq_tpu_torch.ops.int4 import check_kernel_shape
 from rabitq_tpu_torch.tools import int4probe
 
 
@@ -137,6 +138,33 @@ def test_wrapper_rejects_bad_operands():
         cuda_int4_dot(b.to(torch.int8), b, staged=False)
     with pytest.raises(ValueError, match="device"):
         cuda_int4_dot(b.to("meta"), b.to("meta"), staged=True)
+
+
+@pytest.mark.parametrize("k", [32, 96, 4096])
+@pytest.mark.parametrize("va,vb", [(-8, -8), (7, 7), (-8, 7)])
+def test_twin_extreme_operands(k, va, vb):
+    """All -8 / all 7 operands: every output is va * vb * K (64 K, 49 K,
+    -56 K), exactly."""
+    a = pack_int4(torch.full((5, k), va, dtype=torch.int8))
+    b = pack_int4(torch.full((3, k), vb, dtype=torch.int8))
+    got = int4_dot_reference(a, b)
+    assert torch.equal(got, torch.full((5, 3), va * vb * k, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kb,n", [(16, 1), (48, 64), (512, 65), (2048, 512),
+                                  (8192, 64 * 65_535)])
+def test_kernel_shape_accepts(kb, n):
+    """K any multiple of 32: B is widened 2048 columns at a time, so no K
+    is too wide for shared memory (the staged kernel used to take a
+    16 x K/2 tile whole)."""
+    check_kernel_shape(kb, n)
+
+
+def test_kernel_shape_rejects():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        check_kernel_shape(40, 8)  # K = 80
+    with pytest.raises(ValueError, match="exceeds"):
+        check_kernel_shape(64, 64 * 65_535 + 1)
 
 
 def test_probe_stages_on_cpu():

@@ -121,6 +121,94 @@ def test_wrapper_rejects_bad_operands():
         cuda_gather_l2(*(t.to("meta") for t in (base, pos, q)))
 
 
+def test_twin_gives_nan_exactly_outside_the_rows():
+    """The twin's contract is the kernel's: a position outside [0, N) is
+    not read and gives NaN, its neighbours the right sums."""
+    base, pos, q = _operands(np.random.default_rng(4), 300, 64, 5, 40)
+    want = _twin(base, pos, q)
+    pos[1, 5], pos[1, 6], pos[3, 33] = -1, 300, 10**12
+    got = _twin(base, pos, q)
+    nan = np.isnan(got)
+    assert nan.sum() == 3 and nan[1, 5] and nan[1, 6] and nan[3, 33]
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    t = map(torch.from_numpy, (base, pos, q))
+    assert torch.equal(cuda_gather_l2(*t).isnan(), torch.from_numpy(nan))
+
+
+@pytest.mark.parametrize("r", [1, 33, 150])
+@pytest.mark.parametrize("d", [4, 128, 132, 1024])
+def test_twin_nan_contract_across_shapes(d, r):
+    """At the widths and candidate counts the kernel's instances and items
+    split on: NaN exactly at positions outside [0, N) (below 0, N, far
+    past N), float64 numpy's sums everywhere else."""
+    n, b = 200, 6
+    rng = np.random.default_rng(d * 1000 + r)
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    pos = rng.integers(0, n, (b, r))
+    bad = [(0, 0, -1), (3, r - 1, n), (5, r // 2, 2**40)]
+    for i, j, v in bad:
+        pos[i, j] = v
+    got = _twin(base, pos, q)
+    nan = np.zeros((b, r), bool)
+    for i, j, _ in bad:
+        nan[i, j] = True
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    rows = base.astype(np.float64)[np.where(nan, 0, pos)]
+    want = ((rows - q.astype(np.float64)[:, None, :]) ** 2).sum(-1)
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-5, atol=1e-4)
+
+
+def test_chip_smoke_gather_helpers():
+    """The smoke's cluster-local positions stay inside [0, N) and within
+    each query's windows; its bound on 2048 x 32 distinct positions at D
+    128 is 35.4 MB of rows, positions, queries and output over 3.35 TB/s."""
+    import chip_smoke
+
+    pos = chip_smoke.cluster_gather_positions("cpu", 10_000, 64, 32,
+                                              windows=28, width=300, seed=1)
+    assert pos.shape == (64, 32) and pos.dtype == torch.int64
+    assert int(pos.min()) >= 0 and int(pos.max()) < 10_000
+    assert torch.equal(
+        pos, chip_smoke.cluster_gather_positions("cpu", 10_000, 64, 32,
+                                                 windows=28, width=300,
+                                                 seed=1))
+    one = chip_smoke.cluster_gather_positions("cpu", 10_000, 50, 32,
+                                              windows=1, width=300, seed=2)
+    span = one.max(1).values - one.min(1).values
+    assert int(span.max()) < 300
+    pos = torch.arange(2048 * 32).reshape(2048, 32)
+    ms, by, gb, rows = chip_smoke.gather_bound(pos, 1_200_000, 128)
+    assert by == "bytes" and rows == 2048 * 32
+    assert gb == pytest.approx(2048 * 32 * (512 + 12) / 1e9 + 2048 * 512 / 1e9)
+    assert ms == pytest.approx(gb / 3.35e12 * 1e12)
+
+
+@pytest.mark.parametrize(
+    "name,pos,rows",
+    [
+        ("distinct", [[0, 1, 2], [3, 4, 5]], 6),
+        ("repeat within a query", [[7, 7, 2], [3, 4, 5]], 5),
+        ("rows shared by queries", [[0, 9, 2], [9, 2, 0]], 3),
+        ("outside [0, N) not read", [[-1, 1, 2], [100, 4, 2**40]], 3),
+        ("every position one row", [[5, 5, 5], [5, 5, 5]], 1),
+    ],
+)
+def test_chip_smoke_gather_bound_counts_distinct_rows(name, pos, rows):
+    """The bound reads each distinct valid row once, however many
+    positions name it; positions and outputs count at every slot, the
+    operations only at valid ones."""
+    import chip_smoke
+
+    pos = torch.tensor(pos)
+    n, dim = 100, 64
+    ms, by, gb, got = chip_smoke.gather_bound(pos, n, dim)
+    assert got == rows
+    want = rows * dim * 4 + pos.numel() * 12 + pos.shape[0] * dim * 4
+    assert gb == pytest.approx(want / 1e9) and by == "bytes"
+    assert ms == pytest.approx(want / 3.35e12 * 1e3)
+
+
 def test_search_matches_jax_rerank_kernel_at_960d():
     """The port searching a 960-d JAX index (CPU: the kernels' twins)
     against JAX search with its rerank kernel (interpret mode), exact
