@@ -7,19 +7,27 @@ Phases, one line each or more (a phase that fails raises; the exit code is
 then non-zero and no result line is printed):
 
   1. [env]    torch/CUDA versions and the card's name and power limit;
-  2. [build]  nvcc compiles the three kernel sources of
+  2. [build]  nvcc compiles the four kernel sources of
      rabitq_tpu_torch/csrc/ for sm_90a at once (time, ptxas usage);
-  3. [kernel] each kernel against its plain PyTorch twin on the card, both
-     timed with CUDA events, beside the kernel's bound:
+  3. [kernel] each kernel against its plain PyTorch twin on the card,
+     beside the kernel's bound; kernels are timed by device time with the
+     L2 cold (profile), twins by CUDA events:
+       quantize (the fused residual quantization) at the sift shape
+       (B=2048, probe 28, D=128, unpacked) and the gist shape (B=1024,
+       probe 80, D=1024, nibble-packed), dither off and on: quantized
+       values, lo, delta and code_sum bit-equal, ycd within rtol 1e-6;
        rough_scan, bit-equal, in each of its modes (the lane fold at depth
        2, search's default, and 1, and the full [S, span] output), at the
        sift shape (D=128, span=384, S=2048*28) and the gist shape (D=1024,
        span=384, S=1024*80), each on random operands (every task at its
        own random start, with edge cases) and on cluster-structured ones
        (4097 clusters laid end to end, [B, probe] distinct clusters a
-       query drawn with skew); five checked calls profiled, splitting
-       their device time into the kernel and its grouping glue; the bound
-       counts the output the mode writes;
+       query drawn with skew), and at the gist shape in each mode on the
+       nibble-packed query operand (qpack), also bit-equal to the unpacked
+       kernel on the same values; five checked calls profiled, each after
+       a read that evicts the L2, splitting their device time into the
+       kernel and its grouping glue; the bound counts the query bytes and
+       the output the mode writes;
        gather_l2 at the gist shape (N=1.2M, D=1024, B=1024, R=150) and
        the sift shape (D=128, B=2048, R=32), with duplicate positions and
        row N-1, and at the sift shape on cluster-local positions (each
@@ -35,17 +43,27 @@ then non-zero and no result line is printed):
      16,384 queries, k-means (k=4096, 260k sample, 15 iterations),
      build_index(bits=4, spill=0.2, balance=1.5), search_many at probe 28,
      rerank 32, topk 10, batch 2048; brute-force ground truth on the card;
-     recall@10 >= 0.93, every rough_scan call launching both search
-     kernels; 64 queries re-searched on the CPU path (the twins, the same
-     params) must agree;
-  6. [gist]   the GIST-like path at full width: 1M x 960 corpus, 4,096
+     recall@10 >= 0.93, every rough_scan call launching each of the three
+     search kernels once (the scan unpacked); 64 queries re-searched on
+     the CPU path (the twins, the same params) must agree;
+  6. [saved]  the sift index dumped with dump_to_dir to a temporary
+     directory and loaded back onto the card with load_from_dir;
+     search_many of the 16,384 queries must return the in-memory index's
+     ids and distances exactly (dump and load seconds logged);
+  7. [cli]    python -m rabitq_tpu_torch.cli, in-process (main(argv)), on
+     the sift data written as fvecs/ivecs: build (bits 4, spill 0.2), run
+     (probe 28, rerank 32, topk 10, batch 2048) at recall@10 >= 0.93, run
+     on the [saved] directory at the sift path's recall, run
+     --rerank-mode heap over 64 queries, and train on the 260k sample (2
+     iterations); the temporary files are deleted after;
+  8. [gist]   the GIST-like path at full width: 1M x 960 corpus, 4,096
      queries, k-means (k=4096, 260k sample, 15 iterations), the same
      build, search_many over 4 batches of 1024 at rerank 150, topk 100,
      probes 48/64/80/96; at probe 80 recall@100 >= 0.93, 4 rough_scan
-     calls with 4 launches of each search kernel, and every returned
-     distance equal to its id's exact distance. Slots without a distinct
-     id (a spilled build can index an id twice) are counted and scored
-     as misses.
+     calls with 4 launches of each search kernel, the scan's all in qpack
+     mode, and every returned distance equal to its id's exact distance.
+     Slots without a distinct id (a spilled build can index an id twice)
+     are counted and scored as misses.
   Every probe of both paths runs four times, in turns with the default
   SearchParams (the lane fold on) and with select_reduce=False (the full
   scan output): on, off, off, on. A [<path> fold] line sets the two modes
@@ -54,9 +72,13 @@ then non-zero and no result line is printed):
   stage (per-task and global top-k) and the rough-scan stage (the kernel
   and the grouping glue launched in its wrapper) beside the bound of that
   batch's operands (distinct probed rows, the output the mode writes),
-  and the groups per cluster, and the gather_l2 kernel's device time (one
+  and the groups per cluster, the gather_l2 kernel's device time (one
   launch) beside the bound of that batch's positions (each distinct row
-  once). At the checked probe every run is checked, and one batch of each
+  once), the quantize kernel's device time and the elementwise kernels'
+  share, and the batch's peak device memory above what was allocated
+  before it, beside that of the same batch with the quantize stage's
+  plain version (which materialises the [B, probe, D] f32 residual).
+  At the checked probe every run is checked, and one batch of each
   mode runs under torch.cuda.set_sync_debug_mode("error"), so a host sync
   fails the run.
 
@@ -72,9 +94,12 @@ import dataclasses
 import gc
 import importlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -82,17 +107,19 @@ import torch
 # every_id: every result slot must hold an id. Off at topk 100 with
 # rerank 150 < 2 * topk, where the spill duplicates among a query's 150
 # candidates can leave fewer than 100 distinct ids (-1, +inf slots).
+# qpack: the index dim (padded to a multiple of 128) is a multiple of 256,
+# so search quantizes into the scan's nibble-packed operand.
 SIFT = dict(n=1_000_000, dim=128, n_centers=1024, nq=16384, probe=28,
-            rerank=32, topk=10, batch=2048, every_id=True)
+            rerank=32, topk=10, batch=2048, every_id=True, qpack=False)
 GIST = dict(n=1_000_000, dim=960, n_centers=1024, nq=4096, rerank=150,
-            topk=100, batch=1024, every_id=False)
+            topk=100, batch=1024, every_id=False, qpack=True)
 GIST_PROBES, GIST_CHECK_PROBE = (48, 64, 80, 96), 80
 K, TRAIN_CAP, KMEANS_ITERS = 4096, 260_000, 15
 MIN_RECALL = 0.93
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core operations
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot")
+KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize")
 # Checked scan calls profiled a shape, and the record_function labels that
 # mark the scan wrapper's call and the selection in a profiled search batch.
 SCAN_PROFILED_CALLS = 5
@@ -101,6 +128,10 @@ SELECT_STAGE = "chip_smoke: selection stage"
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 GATHER_KERNEL = "gather_l2_kernel"
 INT4_KERNEL = "int4_dot_kernel"
+QUANT_KERNEL = "quantize_kernel"
+ELEMENTWISE = "elementwise_kernel"  # torch's pointwise kernels' names
+# ycd = sum r^2: the quantize kernel sums in another order than torch.sum.
+YCD_RTOL = 1e-6
 # Standalone kernel times are device times (profile) of calls that each
 # find the 50 MB L2 cold, as search does: a read of this many bytes goes
 # before every call. Back-to-back calls timed by CUDA events measure the
@@ -158,6 +189,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def l2_flush():
+    """A buffer of L2_FLUSH_BYTES whose sum() evicts the L2, and the keys
+    of the device events that sum launches (to leave out of a profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.sum()
+        torch.cuda.synchronize()
+    return flush, {e.key for e in prof.key_averages()}
+
+
 def cold_device_ms(fn, name=None, calls=COLD_CALLS):
     """Mean device ms of one call of fn() with the L2 cold: ``calls``
     calls under the profiler, each after a read of L2_FLUSH_BYTES. Counts
@@ -168,11 +211,7 @@ def cold_device_ms(fn, name=None, calls=COLD_CALLS):
     ProfileLostRecords."""
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flush.sum()
-        torch.cuda.synchronize()
-    flush_keys = {e.key for e in prof.key_averages()}
+    flush, flush_keys = l2_flush()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -253,22 +292,25 @@ def cluster_scan_operands(dev, n_clusters, b, probe, span, dim, seed=0,
     return (codes, factors, starts.int(), t_sizes.int(), qvals, scal)
 
 
-def scan_bound(codes, starts, sizes, span, out_width):
+def scan_bound(codes, starts, sizes, span, out_width, q_bytes=None):
     """The least time of one scan on these operands: each probed row's code
     and factors read once (the union of the tasks' windows), each task's
-    query values, scalars, start and size read once, the [S, out_width]
-    f32 output written once (out_width = span unfolded, depth * 128
-    folded); against 2 * D int8 operations per scanned slot. Returns
-    (bound ms, "bytes" or "operations", distinct rows, GB)."""
+    query values (``q_bytes``: D, or D/2 nibble-packed), scalars, start
+    and size read once, the [S, out_width] f32 output written once
+    (out_width = span unfolded, depth * 128 folded); against 2 * D int8
+    operations per scanned slot. Returns (bound ms, "bytes" or
+    "operations", distinct rows, GB)."""
     n, dim = codes.shape
     s = starts.shape[0]
+    q_bytes = dim if q_bytes is None else q_bytes
     sz = sizes.clamp(0, span).long()
     diff = torch.zeros(n + 1, dtype=torch.int32, device=codes.device)
     one = torch.ones(s, dtype=torch.int32, device=codes.device)
     diff.index_add_(0, starts.long(), one)
     diff.index_add_(0, starts.long() + sz, -one)
     rows = int((torch.cumsum(diff, 0)[:n] > 0).sum())
-    nbytes = rows * (dim + 16) + s * (dim + 16 + 8) + s * out_width * 4
+    nbytes = (rows * (dim + 16) + s * (q_bytes + 16 + 8)
+              + s * out_width * 4)
     ops = 2 * dim * int(sz.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -320,12 +362,13 @@ def retry_lost_records(fn, label, attempts=3):
     raise AssertionError(f"[profile {label}] lost records {attempts} times")
 
 
-def split_scan_profile(prof, calls):
+def split_scan_profile(prof, calls, exclude=()):
     """(kernel ms, glue ms) per call of a profile that holds ``calls``
-    scan wrapper calls and nothing else. Every device event must appear a
+    scan wrapper calls and nothing else but device events keyed in
+    ``exclude`` (the L2 flush). Every device event must appear a
     multiple of ``calls`` times, the scan kernel exactly ``calls``
     times: a profile that lost records fails instead of reading low."""
-    ops = device_ops(prof)
+    ops = [op for op in device_ops(prof) if op[0] not in exclude]
     launched = [c for k, _, c in ops if SCAN_KERNEL in k]
     if launched != [calls] or any(c % calls for _, _, c in ops):
         raise ProfileLostRecords(f"profile of {calls} scan calls holds "
@@ -333,6 +376,36 @@ def split_scan_profile(prof, calls):
     kernel = sum(t for k, t, _ in ops if SCAN_KERNEL in k)
     glue = sum(t for k, t, _ in ops if SCAN_KERNEL not in k)
     return kernel / calls, glue / calls
+
+
+def quantize_operands(dev, b, probe, dim, k=K, seed=0):
+    """Quantize operands as search makes them: y [B, D] rotated queries,
+    centroids [K, D], [B, probe] distinct cluster ids a query, and a
+    dither [D] in [0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((b, dim), generator=gen, device=dev)
+    centroids = torch.randn((k, dim), generator=gen, device=dev)
+    cids = torch.rand((b, k), generator=gen, device=dev).argsort(dim=1)
+    bias = torch.rand(dim, generator=gen, device=dev)
+    return y, centroids, cids[:, :probe].contiguous(), bias
+
+
+def quantize_bound(y, centroids, cids, pack, dither):
+    """The least time of one quantize call: y, each distinct probed
+    centroid row, cids (and the dither) read once, the quantized values
+    (D or D/2 bytes a task) and scal written once; against 9 f32
+    operations a value (subtract, min, max, multiply and add for ycd;
+    subtract, divide, round or floor and add, clamp). Returns (bound ms,
+    "bytes" or "operations", GB)."""
+    b, dim = y.shape
+    s = cids.numel()
+    rows = int(torch.unique(cids).numel())
+    nbytes = (4 * b * dim + 4 * rows * dim + 8 * s + 4 * dim * dither
+              + s * (dim // 2 if pack else dim) + 16 * s)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 9 * s * dim / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e9)
 
 
 def gather_operands(dev, n, dim, b, r, seed=0):
@@ -390,9 +463,14 @@ def assert_gather_close(got, want):
 
 def run_captured(fn):
     """fn() with the number of calls it made to the search module's
-    rough_scan stage, and the launches of both search kernels, all
-    counted from 0 just before fn() and read just after its synchronize."""
-    from rabitq_tpu_torch.ops import cuda_gather_l2, cuda_rough_scan
+    rough_scan stage, and the launches of the three search kernels (and
+    the scan's in qpack mode), all counted from 0 just before fn() and
+    read just after its synchronize."""
+    from rabitq_tpu_torch.ops import (
+        cuda_gather_l2,
+        cuda_quantize_residuals,
+        cuda_rough_scan,
+    )
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     stage = tsearch.rough_scan
@@ -405,15 +483,17 @@ def run_captured(fn):
 
     tsearch.rough_scan = counted
     try:
-        cuda_rough_scan.launches = 0
-        cuda_gather_l2.launches = 0
+        cuda_rough_scan.launches = cuda_rough_scan.launches_qpack = 0
+        cuda_gather_l2.launches = cuda_quantize_residuals.launches = 0
         out = fn()
         torch.cuda.synchronize()
     finally:
         tsearch.rough_scan = stage
     return out, {
         "rough_scan calls": calls,
+        "quantize": cuda_quantize_residuals.launches,
         "rough_scan": cuda_rough_scan.launches,
+        "rough_scan qpack": cuda_rough_scan.launches_qpack,
         "gather_l2": cuda_gather_l2.launches,
     }
 
@@ -442,7 +522,8 @@ def profile_batch(rt, index, q, params, label, smi):
     record_function ranges, so the kernels they launch are found by their
     CPU parents. Returns the rough-scan stage's kernel ms (rough_scan_kernel)
     and glue ms (the other kernels launched in the wrapper), the rerank's
-    gather_l2 kernel ms (one launch), the selection
+    gather_l2 kernel ms (one launch), the quantize kernel ms (one launch),
+    the ms and launches of torch's elementwise kernels, the selection
     stage's ms with those of its per-task and its global top-k, the device
     ops of the batch and its device busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -491,6 +572,11 @@ def profile_batch(rt, index, q, params, label, smi):
     if len(gather) != 1 or gather[0][1] != 1:
         raise ProfileLostRecords(f"profiled batch: gather_l2 kernel launches "
                                  f"{gather}")
+    quant = [(t, c) for k, t, c in dev_ops if QUANT_KERNEL in k]
+    if len(quant) != 1 or quant[0][1] != 1:
+        raise ProfileLostRecords(f"profiled batch: quantize kernel launches "
+                                 f"{quant}")
+    elementwise = [(t, c) for k, t, c in dev_ops if ELEMENTWISE in k]
     glue = sum(us for k, us in stage_kernels(stage_event(prof, SCAN_STAGE))
                if SCAN_KERNEL not in k)
     if glue <= 0:
@@ -504,6 +590,9 @@ def profile_batch(rt, index, q, params, label, smi):
     per_task, glob = (sum(us for _, us in stage_kernels(c)) / 1e3
                       for c in topks)
     return dict(kernel_ms=scan[0][0], gather_ms=gather[0][0],
+                quantize_ms=quant[0][0],
+                elementwise_ms=sum(t for t, _ in elementwise),
+                elementwise_launches=sum(c for _, c in elementwise),
                 glue_ms=glue / 1e3,
                 select_ms=sum(us for _, us in stage_kernels(sel)) / 1e3,
                 per_task_ms=per_task, global_ms=glob,
@@ -536,16 +625,16 @@ def scan_in_search(rt, index, q, params):
         rt.search(index, q, params)
     finally:
         tsearch.cuda_rough_scan, tsearch.cuda_gather_l2 = wrapper, gather
-    codes, _, starts, sizes, _, _, span, fold = seen[0]
+    codes, _, starts, sizes, qvals, _, span, fold, qpack = seen[0]
     pos, n, dim = gathered[0]
     g_bound_ms, _, _, g_rows = gather_bound(pos, n, dim)
     f = effective_fold(span, fold)
     bound_ms, bound_by, rows, gb = scan_bound(
-        codes, starts, sizes, span, f * 128 if f else span)
+        codes, starts, sizes, span, f * 128 if f else span, qvals.shape[1])
     g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
     return dict(bound_ms=bound_ms, bound_by=bound_by, rows=rows, gb=gb,
                 groups_max=g_max, groups_mean=g_mean, tasks=starts.shape[0],
-                fold=f, gather_shape=(*pos.shape, dim),
+                fold=f, qpack=qpack, gather_shape=(*pos.shape, dim),
                 gather_rows=g_rows, gather_bound_ms=g_bound_ms)
 
 
@@ -578,17 +667,24 @@ def build_kernels():
     log(f"[build] flags {' '.join(_cuda.NVCC_FLAGS)}")
 
 
-def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False):
+def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False,
+                     qpack=False):
     """The scan kernel against its twin on ``ops`` in one mode (fold depth
-    2, 1 or 0). SCAN_PROFILED_CALLS wrapper calls run under the profiler
-    and each output must equal the twin bit for bit (and, for
-    scan_operands, the edge-case tasks 0-3 be right); their profile splits
-    the device time into the kernel and the grouping glue. Then the same
-    call and the twin are timed by CUDA events, beside the bound of the
-    output this mode writes."""
+    2, 1 or 0; with ``qpack`` on the nibble-packed query values, and then
+    also against the unpacked kernel on the same values).
+    SCAN_PROFILED_CALLS wrapper calls run under the profiler, each after
+    a read that evicts the L2, and each output must equal the twin bit
+    for bit (and, for scan_operands, the edge-case tasks 0-3 be right);
+    their profile gives the kernel's device time and the grouping glue's.
+    The twin is timed by CUDA events; the bound counts the query bytes
+    and the output this mode writes."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
+    from rabitq_tpu_torch.ops import (
+        cuda_rough_scan,
+        pack_query_nibbles,
+        rough_scan_reference,
+    )
     from rabitq_tpu_torch.ops.scan_kernel import effective_fold
 
     codes, _, starts, sizes = ops[:4]
@@ -597,19 +693,32 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False):
     f = effective_fold(span, fold)
     if f != fold:
         raise AssertionError(f"span {span} does not fold at depth {fold}")
-    mode = SCAN_MODES[fold]
-    want = rough_scan_reference(*ops, span, fold)
+    mode = ("qpack " if qpack else "") + SCAN_MODES[fold]
+    args = list(ops)
+    if qpack:
+        args[4] = pack_query_nibbles(ops[4])
+    want = rough_scan_reference(*args, span, fold, qpack)
+    if qpack:
+        unpacked = cuda_rough_scan(*ops, span, fold)
+        torch.cuda.synchronize()
+        if not torch.equal(unpacked.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"rough_scan unpacked kernel != packed twin, "
+                                 f"{label} {mode}")
+        del unpacked
     fin = torch.isfinite(want)
-    cuda_rough_scan(*ops, span, fold)  # warm-up: launch attribute, occupancy
+    cuda_rough_scan(*args, span, fold, qpack)  # warm-up: attribute, occupancy
     torch.cuda.synchronize()
+    flush, flush_keys = l2_flush()
     max_abs_err = 0.0
 
     def profiled_checked_calls():
         nonlocal max_abs_err
+        outs = []
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            outs = [cuda_rough_scan(*ops, span, fold)
-                    for _ in range(SCAN_PROFILED_CALLS)]
+            for _ in range(SCAN_PROFILED_CALLS):
+                flush.sum()
+                outs.append(cuda_rough_scan(*args, span, fold, qpack))
             torch.cuda.synchronize()
         for got in outs:
             same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
@@ -627,31 +736,82 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False):
             ):
                 raise AssertionError("edge cases: size 0 / size == span "
                                      "slots wrong")
-        return split_scan_profile(prof, SCAN_PROFILED_CALLS)
+        return split_scan_profile(prof, SCAN_PROFILED_CALLS, flush_keys)
 
     kernel_ms, glue_ms = retry_lost_records(
         profiled_checked_calls, f"rough_scan {label} {mode}")
-    del want, fin
-    call_ms = cuda_ms(lambda: cuda_rough_scan(*ops, span, fold), 20)
-    twin_ms = cuda_ms(lambda: rough_scan_reference(*ops, span, fold),
+    del want, fin, flush
+    twin_ms = cuda_ms(lambda: rough_scan_reference(*args, span, fold, qpack),
                       twin_iters)
     out_width = f * 128 if f else span
     bound_ms, bound_by, rows, gb = scan_bound(codes, starts, sizes, span,
-                                              out_width)
+                                              out_width, args[4].shape[1])
     g_max, g_mean = groups_per_cluster(codes, starts, sizes, span)
     log(f"[kernel rough_scan {label} {mode}] S={s} span={span} D={dim} "
-        f"N={n_rows} out [S, {out_width}]: {SCAN_PROFILED_CALLS} calls "
-        f"bit-equal to twin (max |diff| {max_abs_err}, +inf slots equal); "
-        f"in them kernel {kernel_ms:.4f} ms + grouping glue {glue_ms:.4f} "
-        f"ms of device time (profile); call {call_ms:.4f} ms, twin "
-        f"{twin_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({rows} distinct rows, {gb:.4f} GB): call at "
-        f"{100 * bound_ms / call_ms:.1f}%, kernel at "
-        f"{100 * bound_ms / kernel_ms:.1f}% of bound; groups per cluster "
-        f"max {g_max} mean {g_mean:.2f} [{smi}]")
-    return dict(max_abs_err=max_abs_err, ms=call_ms, plain_ms=twin_ms,
+        f"N={n_rows} query [S, {args[4].shape[1]}] out [S, {out_width}]: "
+        f"{SCAN_PROFILED_CALLS} calls bit-equal to twin"
+        + (" and to the unpacked kernel" if qpack else "")
+        + f" (max |diff| {max_abs_err}, +inf slots equal); kernel "
+        f"{kernel_ms:.4f} ms + grouping glue {glue_ms:.4f} ms of device time "
+        f"(profile, L2 cold); twin {twin_ms:.4f} ms (CUDA events); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({rows} distinct rows, {gb:.4f} "
+        f"GB): kernel at {100 * bound_ms / kernel_ms:.1f}% of bound; groups "
+        f"per cluster max {g_max} mean {g_mean:.2f} [{smi}]")
+    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=twin_ms,
                 kernel_ms=kernel_ms, glue_ms=glue_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def check_quantize(dev, smi, label, b, probe, dim, pack):
+    """The fused quantize kernel against its twin at one path's shape, with
+    the dither off (search's default) and on: quantized values, lo, delta
+    and code_sum bit-equal, ycd within YCD_RTOL. Its time is the kernel's
+    device time with the L2 cold (dither off), beside its bound and the
+    twin's time (CUDA events)."""
+    from rabitq_tpu_torch.ops import (
+        cuda_quantize_residuals,
+        quantize_residuals_reference,
+    )
+
+    y, centroids, cids, bias = quantize_operands(dev, b, probe, dim,
+                                                 seed=dim)
+    max_abs_err = max_rel = 0.0
+    for rb in (None, bias):
+        (qg, sg), (qw, sw) = (
+            fn(y, centroids, cids, rb, pack)
+            for fn in (cuda_quantize_residuals, quantize_residuals_reference))
+        torch.cuda.synchronize()
+        if not (torch.equal(qg, qw) and torch.equal(
+                sg[:, :3].contiguous().view(torch.int32),
+                sw[:, :3].contiguous().view(torch.int32))):
+            raise AssertionError(f"quantize kernel != twin at {label} "
+                                 f"(dither {rb is not None})")
+        diff = (sg[:, 3] - sw[:, 3]).abs()
+        max_abs_err = max(max_abs_err, float(diff.max()))
+        max_rel = max(max_rel, float((diff / sw[:, 3].abs()).max()))
+        if not torch.allclose(sg[:, 3], sw[:, 3], rtol=YCD_RTOL, atol=0):
+            raise AssertionError(f"quantize ycd beyond rtol {YCD_RTOL} at "
+                                 f"{label}: {max_rel}")
+    kernel_ms = retry_lost_records(
+        lambda: cold_device_ms(
+            lambda: cuda_quantize_residuals(y, centroids, cids, None, pack),
+            QUANT_KERNEL),
+        f"quantize {label}")
+    twin_ms = cuda_ms(
+        lambda: quantize_residuals_reference(y, centroids, cids, None, pack),
+        3)
+    bound_ms, bound_by, gb = quantize_bound(y, centroids, cids, pack, False)
+    s = cids.numel()
+    log(f"[kernel quantize {label}] B={b} probe={probe} D={dim} S={s} "
+        f"{'packed [S, D/2]' if pack else 'unpacked [S, D]'}: dither off and "
+        f"on, quantized values, lo, delta and code_sum bit-equal to the twin, "
+        f"ycd max rel diff {max_rel:.3g} (rtol {YCD_RTOL}); kernel "
+        f"{kernel_ms:.4f} ms (device, L2 cold), twin {twin_ms:.4f} ms; "
+        f"{int(torch.unique(cids).numel())} distinct centroid rows, reads+"
+        f"writes {gb:.4f} GB, bound {bound_ms:.4f} ms by {bound_by}, kernel "
+        f"at {100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=twin_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_gather_l2(dev, smi, n, dim, b, r, positions="random"):
@@ -762,10 +922,54 @@ def int4_phase(dev, smi):
     return {name: {**r, **r["window"]} for name, r in res.items()}
 
 
+# The largest max_memory_allocated() seen before batch_peak_mb reset it,
+# since the path's own reset: peak_memory_gb() covers both.
+_PEAK_SEEN = [0]
+
+
+def reset_peak_memory():
+    torch.cuda.reset_peak_memory_stats()
+    _PEAK_SEEN[0] = 0
+
+
+def peak_memory_gb():
+    return max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated()) / 1e9
+
+
+def batch_peak_mb(fn):
+    """Peak device memory of fn() (one search batch) above what was
+    allocated before it, in MB."""
+    torch.cuda.synchronize()
+    _PEAK_SEEN[0] = max(_PEAK_SEEN[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
+def batch_peaks(rt, index, q, params):
+    """(fused, plain) peak MB of one search batch: as search runs it, and
+    with the quantize stage's plain version in place of the kernel (the
+    [B, probe, D] f32 residual materialised)."""
+    from rabitq_tpu_torch.ops import quantize_residuals_reference
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    fused = batch_peak_mb(lambda: rt.search(index, q, params))
+    kernel = tsearch.cuda_quantize_residuals
+    tsearch.cuda_quantize_residuals = quantize_residuals_reference
+    try:
+        plain = batch_peak_mb(lambda: rt.search(index, q, params))
+    finally:
+        tsearch.cuda_quantize_residuals = kernel
+    return fused, plain
+
+
 def run_search(rt, index, qd, truth, params, label, smi):
     """search_many of the whole query set once (after a warm-up batch):
     wall and device time, host enqueue time and launch counts, recall;
-    then the counters, the scan's bound in one batch and one profiled
+    then the counters, one batch's peak memory (fused and with the plain
+    quantize stage), the scan's bound in one batch and one profiled
     batch. Returns a dict of what it measured, with ids and dists."""
     nb, batch = qd.shape[0], qd.shape[1]
     topk = params.topk
@@ -795,7 +999,9 @@ def run_search(rt, index, qd, truth, params, label, smi):
             rt.search_with_stats(index, q, params)[2]
         )
     torch.cuda.synchronize()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = peak_memory_gb()
+    res["batch_peak_mb"], res["plain_batch_peak_mb"] = batch_peaks(
+        rt, index, qd[1], params)
     ids = ids.reshape(-1, topk)
     dists = dists.reshape(-1, topk)
     hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
@@ -813,7 +1019,10 @@ def run_search(rt, index, qd, truth, params, label, smi):
         f"events, {res['device_ms']:.3f} ms/batch; host enqueue "
         f"{res['enqueue_ms']:.3f} ms/batch), QPS {res['qps']:.1f}, "
         f"recall@{topk} {res['recall']:.4f}, slots without an id "
-        f"{res['no_id']}, peak mem {peak_gb:.3f} GB, {rt.METRICS.to_str()}, "
+        f"{res['no_id']}, peak mem {peak_gb:.3f} GB (one batch: "
+        f"{res['batch_peak_mb']:.1f} MB above its start; with the plain "
+        f"quantize stage {res['plain_batch_peak_mb']:.1f} MB), "
+        f"{rt.METRICS.to_str()}, "
         f"search_many: {counts}; in one batch: rough_scan stage "
         f"{scan['stage_ms']:.4f} ms = kernel {scan['kernel_ms']:.4f} ms "
         f"+ grouping glue {scan['glue_ms']:.4f} ms (profile) vs bound "
@@ -829,8 +1038,11 @@ def run_search(rt, index, qd, truth, params, label, smi):
         f"ms (profile, 1 launch) vs bound {scan['gather_bound_ms']:.4f} ms "
         f"(B, R, D = {scan['gather_shape']}, {scan['gather_rows']} distinct "
         f"rows; "
-        f"{100 * scan['gather_bound_ms'] / scan['gather_ms']:.1f}% of bound) "
-        f"[{smi}]")
+        f"{100 * scan['gather_bound_ms'] / scan['gather_ms']:.1f}% of bound); "
+        f"quantize kernel {scan['quantize_ms']:.4f} ms (1 launch), "
+        f"elementwise kernels {scan['elementwise_ms']:.4f} ms "
+        f"({scan['elementwise_launches']} launches); scan qpack "
+        f"{scan['qpack']} [{smi}]")
     return res
 
 
@@ -857,18 +1069,27 @@ def log_fold_pair(label, probe, on, off, smi):
         f"{pair('{:.4f}', lambda r: r['scan']['kernel_ms'])}, bound ms "
         f"{pair('{:.4f}', lambda r: r['scan']['bound_ms'])}; gather_l2 "
         f"kernel ms {pair('{:.4f}', lambda r: r['scan']['gather_ms'])} (bound "
-        f"{on[0]['scan']['gather_bound_ms']:.4f}); device busy ms "
+        f"{on[0]['scan']['gather_bound_ms']:.4f}); quantize kernel ms "
+        f"{pair('{:.4f}', lambda r: r['scan']['quantize_ms'])}; elementwise "
+        f"ms {pair('{:.4f}', lambda r: r['scan']['elementwise_ms'])}; one "
+        f"batch's peak MB (above its start) "
+        f"{pair('{:.1f}', lambda r: r['batch_peak_mb'])}, with the plain "
+        f"quantize stage {pair('{:.1f}', lambda r: r['plain_batch_peak_mb'])}"
+        f"; device busy ms "
         f"{pair('{:.3f}', lambda r: r['scan']['busy_ms'])}; device ops "
         f"{pair('{}', lambda r: r['scan']['device_ops'])}; kernel launches "
-        f"per batch rough_scan "
-        f"{pair('{:g}', lambda r: r['counts']['rough_scan'] / nb)}, gather_l2 "
+        f"per batch quantize "
+        f"{pair('{:g}', lambda r: r['counts']['quantize'] / nb)}, rough_scan "
+        f"{pair('{:g}', lambda r: r['counts']['rough_scan'] / nb)} (qpack "
+        f"{pair('{:g}', lambda r: r['counts']['rough_scan qpack'] / nb)}), "
+        f"gather_l2 "
         f"{pair('{:g}', lambda r: r['counts']['gather_l2'] / nb)} [{smi}]")
 
 
 def check_results(base, flat_q, res, cfg, label, nb, min_recall):
     """Shapes, ids against distances, every returned distance equal to its
     id's exact distance, recall, and one launch of each search kernel per
-    batch."""
+    batch, the scan's in qpack mode where the path packs."""
     ids, dists, topk = res["ids"], res["dists"], cfg["topk"]
     n = base.shape[0]
     if tuple(ids.shape) != (flat_q.shape[0], topk):
@@ -897,8 +1118,9 @@ def check_results(base, flat_q, res, cfg, label, nb, min_recall):
         raise AssertionError(
             f"{label}: recall@{topk} {res['recall']:.4f} < {min_recall}")
     counts = res["counts"]
-    if not (counts["rough_scan"] == counts["gather_l2"]
-            == counts["rough_scan calls"] == nb):
+    if not (counts["quantize"] == counts["rough_scan"] == counts["gather_l2"]
+            == counts["rough_scan calls"] == nb
+            and counts["rough_scan qpack"] == (nb if cfg["qpack"] else 0)):
         raise AssertionError(f"{label}: search_many of {nb} batches: {counts}")
 
 
@@ -906,8 +1128,9 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
     """Ground truth, k-means, build and search_many of one configuration
     at each probe, with the default SearchParams (the lane fold on) and
     with select_reduce=False; checks both runs at ``check_probe`` (and
-    that a batch of each makes no host sync) and returns (index, params,
-    flat queries, fold-on run, fold-off run) of that probe. The two modes
+    that a batch of each makes no host sync) and returns a dict of that
+    probe: index, params, queries (qd [nb, batch, D] and flat_q), truth,
+    base and centroids, and the fold-on and fold-off runs. The two modes
     run in the order on, off, off, on, so that a drift of the host's speed
     shows as a spread within each mode rather than as a gap between
     them."""
@@ -935,7 +1158,7 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
     # The peak memory covers k-means, the build and search alone.
     del xb
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -981,8 +1204,9 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
             for r in runs[mode]:
                 check_results(base, flat_q, r, cfg, f"{label} {mode}", nb,
                               min_recall)
-        checked = (index, params, flat_q, runs["fold on"][0],
-                   runs["fold off"][0])
+        checked = dict(index=index, params=params, qd=qd, flat_q=flat_q,
+                       truth=truth, base=base, centroids=centroids,
+                       on=runs["fold on"][0], off=runs["fold off"][0])
         log(f"[{label} check] probe {probe}, fold on and off: shapes, finite "
             f"distances equal to exact, recall, launches ok")
     if checked is None:
@@ -1009,6 +1233,122 @@ def sift_cpu_agreement(rt, index, params, flat_q, ids, dists, topk):
     log(f"[sift check] CPU twin path agrees on {agree:.4f} of 64x{topk} ids")
 
 
+def saved_phase(rt, dev, smi, sift, work):
+    """The sift index dumped to ``work``/saved with dump_to_dir and loaded
+    back onto the card; search_many of the whole query set must return
+    the in-memory index's ids and distances (the fold-on run's). Returns
+    the directory, which the CLI phase runs on."""
+    from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
+
+    saved = work / "saved"
+    t0 = time.perf_counter()
+    dump_to_dir(sift["index"], saved)
+    dump_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in saved.iterdir())
+    t0 = time.perf_counter()
+    loaded = load_from_dir(saved, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dists, ids = rt.search_many(loaded, sift["qd"], sift["params"])
+    topk = sift["params"].topk
+    same_ids = torch.equal(ids.reshape(-1, topk), sift["on"]["ids"])
+    same_d = torch.equal(dists.reshape(-1, topk), sift["on"]["dists"])
+    if not (same_ids and same_d):
+        raise AssertionError(f"[saved] reloaded index: ids equal {same_ids}, "
+                             f"distances equal {same_d}")
+    del loaded
+    log(f"[saved] sift index (n={sift['index'].n}, D={sift['index'].dim}) "
+        f"dump_to_dir {dump_s:.2f}s ({nbytes / 1e9:.3f} GB, "
+        f"{len(list(saved.iterdir()))} files), load_from_dir onto the card "
+        f"{load_s:.2f}s; search_many of {ids.numel() // topk} queries: ids "
+        f"and distances equal to the in-memory index's [{smi}]")
+    return saved
+
+
+def cli_phase(dev, smi, sift, saved, work, min_recall):
+    """rabitq_tpu_torch.cli in-process: build, run on the built directory
+    and on ``saved``, run --rerank-mode heap over 64 queries, train on the
+    260k sample (2 iterations)."""
+    from rabitq_tpu_torch.cli import main as cli
+    from rabitq_tpu_torch.io import read_matrix, write_matrix
+
+    base, qd, truth = sift["base"], sift["qd"], sift["truth"]
+    params = sift["params"]
+    t0 = time.perf_counter()
+    files = {name: work / f"{name}.fvecs" for name in
+             ("base", "centroids", "query", "query64", "sample")}
+    files.update(truth=work / "truth.ivecs", truth64=work / "truth64.ivecs")
+    queries = qd.reshape(-1, qd.shape[-1]).cpu().numpy()
+    truth_np = truth.int().cpu().numpy()
+    write_matrix(files["base"], base)
+    write_matrix(files["centroids"], sift["centroids"].cpu().numpy())
+    write_matrix(files["query"], queries)
+    write_matrix(files["truth"], truth_np)
+    write_matrix(files["query64"], queries[:64])
+    write_matrix(files["truth64"], truth_np[:64])
+    rng = np.random.default_rng(1)
+    write_matrix(files["sample"],
+                 base[rng.choice(base.shape[0], TRAIN_CAP, replace=False)])
+    log(f"[cli] wrote the sift files in {time.perf_counter() - t0:.1f}s")
+
+    def index_args(saved_dir):
+        return ["-b", str(files["base"]), "-c", str(files["centroids"]),
+                "-s", str(saved_dir)]
+
+    def run_args(saved_dir, query="query", truth_f="truth", *extra):
+        return ["run", *index_args(saved_dir), "-q", str(files[query]),
+                "-t", str(files[truth_f]), "-p", str(params.probe), "-k",
+                str(params.topk), "--rerank", str(params.rerank), "--batch",
+                str(qd.shape[1]), *extra]
+
+    def timed(argv):
+        t = time.perf_counter()
+        out = cli(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    built = work / "cli_index"
+    _, build_s = timed(["build", *index_args(built), "--bits", "4",
+                        "--spill", "0.2"])
+    runs = {}
+    for name, argv in (("built", run_args(built)),
+                       ("saved", run_args(saved)),
+                       ("heap", run_args(saved, "query64", "truth64",
+                                         "--rerank-mode", "heap"))):
+        (out, seconds), counts = run_captured(lambda: timed(argv))
+        runs[name] = dict(out, seconds=seconds, counts=counts)
+    if runs["built"]["recall"] < min_recall:
+        raise AssertionError(f"[cli] run recall@{params.topk} "
+                             f"{runs['built']['recall']:.4f} < {min_recall}")
+    # The same hits: the CLI averages in f64, the sift path in f32.
+    slots = truth.shape[0] * params.topk
+    if (round(runs["saved"]["recall"] * slots)
+            != round(sift["on"]["recall"] * slots)):
+        raise AssertionError(f"[cli] run on the saved index: recall "
+                             f"{runs['saved']['recall']} != the sift path's "
+                             f"{sift['on']['recall']}")
+    nb = qd.shape[0]
+    for name in ("built", "saved"):
+        c = runs[name]["counts"]
+        if not c["quantize"] == c["rough_scan"] == c["gather_l2"] == nb + 1:
+            raise AssertionError(f"[cli] run {name}: launches {c} for "
+                                 f"{nb} batches and a warm-up")
+    _, train_s = timed(["train", "-i", str(files["sample"]), "-o",
+                        str(work / "trained.fvecs"), "-k", str(K),
+                        "--iters", "2"])
+    trained = read_matrix(work / "trained.fvecs")
+    if trained.shape != (K, base.shape[1]) or not np.isfinite(trained).all():
+        raise AssertionError(f"[cli] train wrote {trained.shape}")
+    log(f"[cli] build (bits 4, spill 0.2) {build_s:.2f}s; run "
+        + "; ".join(
+            f"{name}: recall@{params.topk} {r['recall']:.4f}, QPS "
+            f"{r['qps']:.1f}, {r['seconds']:.2f}s, launches {r['counts']}"
+            for name, r in runs.items())
+        + f" (the sift path's recall {sift['on']['recall']:.4f}); train k={K} "
+        f"on {TRAIN_CAP} rows, 2 iterations: {train_s:.2f}s [{smi}]")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -1033,8 +1373,11 @@ def main() -> int:
     # 2. Build.
     build_kernels()
 
-    # 3. Kernels against their twins at the paths' shapes: the scan in
-    # each mode, keyed (operands, mode).
+    # 3. Kernels against their twins at the paths' shapes: quantize, then
+    # the scan in each mode, keyed (operands, mode), the gist shape's also
+    # on packed query values (mode "qpack <mode>").
+    quants = {"sift": check_quantize(dev, smi, "sift", 2048, 28, 128, False),
+              "gist": check_quantize(dev, smi, "gist", 1024, 80, 1024, True)}
     scans = {}
     for path, dim, b, probe, span, twin_iters in (
         ("sift", 128, 2048, 28, 384, 3), ("gist", 1024, 1024, 80, 384, 1),
@@ -1044,10 +1387,12 @@ def main() -> int:
                 ops = scan_operands(dev, 1_200_000, b * probe, span, dim)
             else:
                 ops = cluster_scan_operands(dev, K + 1, b, probe, span, dim)
-            for fold in SCAN_MODES:
-                scans[f"{path} {operands}", fold] = check_rough_scan(
-                    smi, f"{path} {operands}", ops, span, twin_iters, fold,
-                    edges=operands == "random")
+            for qpack in (False, True) if dim % 256 == 0 else (False,):
+                for fold in SCAN_MODES:
+                    mode = ("qpack " if qpack else "") + SCAN_MODES[fold]
+                    scans[f"{path} {operands}", mode] = check_rough_scan(
+                        smi, f"{path} {operands}", ops, span, twin_iters,
+                        fold, edges=operands == "random", qpack=qpack)
             del ops
     gather_gist = check_gather_l2(dev, smi, 1_200_000, 1024, 1024, 150)
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
@@ -1059,20 +1404,29 @@ def main() -> int:
     int4 = int4_phase(dev, smi)
 
     # 5. The sift main path.
-    index, params, flat_q, sift_on, sift_off = search_path(
-        rt, dev, smi, "sift", SIFT, (SIFT["probe"],), SIFT["probe"],
-        MIN_RECALL)
-    sift_cpu_agreement(rt, index, params, flat_q, sift_on["ids"],
-                       sift_on["dists"], SIFT["topk"])
-    del index, flat_q, sift_on["ids"], sift_on["dists"]
+    sift = search_path(rt, dev, smi, "sift", SIFT, (SIFT["probe"],),
+                       SIFT["probe"], MIN_RECALL)
+    sift_on, sift_off = sift["on"], sift["off"]
+    sift_cpu_agreement(rt, sift["index"], sift["params"], sift["flat_q"],
+                       sift_on["ids"], sift_on["dists"], SIFT["topk"])
+
+    # 6-7. The sift index saved and loaded; the CLI on the sift data.
+    work = Path(tempfile.mkdtemp(prefix="rabitq_smoke_"))
+    try:
+        saved = saved_phase(rt, dev, smi, sift, work)
+        cli_runs = cli_phase(dev, smi, sift, saved, work, MIN_RECALL)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del sift, sift_on["ids"], sift_on["dists"]
     del sift_off["ids"], sift_off["dists"]
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. The gist path.
-    *_, gist_on, gist_off = search_path(
-        rt, dev, smi, "gist", GIST, GIST_PROBES, GIST_CHECK_PROBE, MIN_RECALL,
-    )
+    # 8. The gist path.
+    gist = search_path(rt, dev, smi, "gist", GIST, GIST_PROBES,
+                       GIST_CHECK_PROBE, MIN_RECALL)
+    gist_on, gist_off = gist["on"], gist["off"]
+    del gist
     gist_label = f"gist probe {GIST_CHECK_PROBE}"
 
     def launches(name):
@@ -1093,26 +1447,41 @@ def main() -> int:
                                       (gist_label, (gist_on, gist_off)))
                    for mode, run in zip(("fold on", "fold off"), runs)]
 
-    main_mode = scans["sift clusters", 2]
+    main_mode = scans["sift clusters", SCAN_MODES[2]]
+    modes = {}
+    for (ops, mode), r in scans.items():
+        modes.setdefault(mode, {})[ops] = {
+            key: r[key] for key in ("ms", "kernel_ms", "glue_ms", "plain_ms",
+                                    "bound_ms")}
     log(json.dumps({"kernels": [
         {"name": "rough_scan", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/rough_scan.cu",
          "replaces": "rabitq_tpu/ops/scan_kernel.py:621",
          **launches("rough_scan"),
+         "launches_qpack": launches("rough_scan qpack"),
          "max_abs_err": max(r["max_abs_err"] for r in scans.values()),
          **{key: main_mode[key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None,
-         "operands": "sift clusters, fold 2 (search's default mode)",
-         "modes": {
-             SCAN_MODES[fold]: {
-                 ops: {key: scans[ops, fold][key]
-                       for key in ("ms", "kernel_ms", "glue_ms", "plain_ms",
-                                   "bound_ms")}
-                 for ops in ("sift random", "sift clusters", "gist random",
-                             "gist clusters")}
-             for fold in SCAN_MODES},
+         "operands": "sift clusters, fold 2 (search's default mode); ms = "
+                     "device time with the L2 cold",
+         "modes": modes,
          "in_search": {label: in_search(run) for label, run in search_runs}},
+        {"name": "quantize_residuals", "route": "cuda",
+         "source": "rabitq_tpu_torch/csrc/quantize.cu",
+         "replaces": "rabitq_tpu/index/search.py:392 (an XLA fusion, not a "
+                     "Pallas kernel)",
+         **launches("quantize"),
+         "max_abs_err": max(r["max_abs_err"] for r in quants.values()),
+         **{key: quants["gist"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "operands": "gist shape (B 1024, probe 80, D 1024, packed); ms = "
+                     "device time with the L2 cold; max_abs_err is ycd's",
+         "sift_shape": quants["sift"],
+         "in_search": {label: in_search(run, ("quantize_ms",
+                                               "elementwise_ms"))
+                       for label, run in search_runs}},
         {"name": "gather_l2", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/gather_l2.cu",
          "replaces": "rabitq_tpu/ops/rerank_kernel.py:103",

@@ -21,3 +21,6 @@ SCALAR: float = 1.0 / ((1 << THETA_LOG_DIM) - 1)
 # rounded up to it, exactly as in the JAX package — so an index built by
 # either package has the same padded dim, capacity and rerank budget.
 LANES: int = 128
+
+# Candidates between threshold updates of the host HeuristicReRanker.
+WINDOW_SIZE: int = 12

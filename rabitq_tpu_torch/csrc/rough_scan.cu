@@ -1,8 +1,8 @@
 // RaBitQ rough-distance scan for Hopper (sm_90a), grouped by cluster.
 //
 // Replaces the TPU kernel rabitq_tpu/ops/scan_kernel.py:pallas_rough_scan
-// (Pallas body _kernel): its full output and its lane fold (reduce 1 or 2),
-// not its nibble-packed query operand (qpack).
+// (Pallas body _kernel): its full output, its lane fold (reduce 1 or 2) and
+// its nibble-packed query operand (qpack).
 //
 // A task t is one (query, probed cluster) pair. For every slot j < span of
 // task t, row = starts[t] + j of the cluster-sorted index:
@@ -29,6 +29,15 @@
 // through the strict < chain of the JAX kernel (scan_kernel.py:276-280),
 // so NaN estimates drop and the result equals the twin's bit for bit.
 //
+// qpack (a runtime flag, any depth): qvals are [S, D/2] int8, byte i =
+// q[i] | q[i + D/2] << 4 (D % 256 == 0), as the fused quantize kernel
+// (csrc/quantize.cu) writes them. The JAX kernel contracts the two nibble
+// halves against the two code halves (scan_kernel.py:180-203); here the
+// group's packed rows are widened once into the same shared [kQpc][lda]
+// query tile the unpacked mode stages, so the product and the epilogue are
+// the unpacked mode's and the output is bit-equal to it. The mode halves
+// the query bytes a group reads (S x D/2 instead of S x D).
+//
 // What bounds it on this card: bytes. A batch must read each probed
 // cluster's rows once (D + 16 bytes a row, codes and factors), each task's
 // query values once and write the [S, span] f32 output once: at D 1024
@@ -46,7 +55,10 @@
 // time and its window is read from HBM about once and from L2 after. For
 // one group, a block
 //   - stages the group's query values (kQpc x D int8, zero rows past the
-//     group) in shared memory once with cp.async;
+//     group) in shared memory once with cp.async; with qpack it loads the
+//     packed rows into registers after the ring's first stages are in
+//     flight and writes both nibble halves to the tile (w & 0x0F0F0F0F is
+//     dims 4c..4c+3, (w >> 4) & 0x0F0F0F0F the same dims + D/2);
 //   - streams the window rows [start, start + size) through a kStages-deep
 //     cp.async ring, kRows rows x kChunk code bytes a stage, the factors
 //     riding with a row tile's last chunk;
@@ -132,7 +144,7 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
                   const int32_t* __restrict__ group_first,
                   int32_t* __restrict__ next_group,
                   float* __restrict__ out,
-                  int n_tasks, int dim, int span) {
+                  int n_tasks, int dim, int span, int qpack) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_task[kQpc];
   __shared__ float4 s_scal[kQpc];
@@ -184,7 +196,7 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
     }
 
     const int n_stages = ((size + kRows - 1) / kRows) * n_chunks;
-    if (n_stages > 0) {
+    if (n_stages > 0 && !qpack) {
       const int qpieces = dim >> 4;
       for (int p = tid; p < kQpc * qpieces; p += kThreads) {
         const int r = p / qpieces;
@@ -226,6 +238,40 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
     };
 
     for (int s = 0; s < kStages - 1; ++s) load_stage(s);
+
+    if (n_stages > 0 && qpack) {
+      // kLoads 16-byte pieces a thread in flight at once; the stores reach
+      // the tile before the barrier at the top of stage 0.
+      constexpr int kLoads = 4;
+      const int half = dim >> 1;
+      const int pieces = half >> 4;
+      const int total = kQpc * pieces;
+      for (int p0 = tid; p0 < total; p0 += kThreads * kLoads) {
+        uint4 w[kLoads];
+#pragma unroll
+        for (int i = 0; i < kLoads; ++i) {
+          const int p = p0 + i * kThreads;
+          const int r = p / pieces;
+          w[i] = make_uint4(0, 0, 0, 0);
+          if (p < total && r < count)
+            w[i] = __ldg(reinterpret_cast<const uint4*>(
+                qvals + (size_t)s_task[r] * half + (p - r * pieces) * 16));
+        }
+#pragma unroll
+        for (int i = 0; i < kLoads; ++i) {
+          const int p = p0 + i * kThreads;
+          if (p >= total) break;
+          const int r = p / pieces;
+          unsigned char* row = s_q + r * lda + (p - r * pieces) * 16;
+          const unsigned m = 0x0F0F0F0Fu;
+          *reinterpret_cast<uint4*>(row) =
+              make_uint4(w[i].x & m, w[i].y & m, w[i].z & m, w[i].w & m);
+          *reinterpret_cast<uint4*>(row + half) =
+              make_uint4((w[i].x >> 4) & m, (w[i].y >> 4) & m,
+                         (w[i].z >> 4) & m, (w[i].w >> 4) & m);
+        }
+      }
+    }
 
     const bool two_m = count > 16;
     int acc[2][2][4];
@@ -352,7 +398,7 @@ template <int kFold>
 int launch_scan(const void* codes, const void* factors, const void* starts,
                 const void* sizes, const void* qvals, const void* scal,
                 const void* order, const void* group_first, void* next_group,
-                void* out, int n_tasks, int dim, int span,
+                void* out, int n_tasks, int dim, int span, int qpack,
                 cudaStream_t stream) {
   const int smem = kQpc * (dim + 16) + kStages * kStageBytes;
   int device = 0;
@@ -396,7 +442,7 @@ int launch_scan(const void* codes, const void* factors, const void* starts,
       static_cast<const int64_t*>(order),
       static_cast<const int32_t*>(group_first),
       static_cast<int32_t*>(next_group), static_cast<float*>(out), n_tasks,
-      dim, span);
+      dim, span, qpack);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,30 +459,32 @@ extern "C" int rabitq_rough_scan_qpc() { return kQpc; }
 // group_first is S past the last group. next_group is one int32 set to 0.
 // fold is the effective depth: 0 writes out [S, span], 1 or 2 the folded
 // [S, fold * 128] (the wrapper applies effective_fold, so span > fold *
-// 128). Preconditions, checked by the Python wrapper: every pointer is
-// 16-byte aligned, dim % 32 == 0, and starts[t] + min(sizes[t], span) <= N
-// for every task.
+// 128). qpack != 0: qvals are nibble-packed [S, dim / 2]. Preconditions,
+// checked by the Python wrapper: every pointer is 16-byte aligned, dim % 32
+// == 0 (dim % 256 == 0 with qpack), and starts[t] + min(sizes[t], span) <=
+// N for every task.
 extern "C" int rabitq_rough_scan(const void* codes, const void* factors,
                                  const void* starts, const void* sizes,
                                  const void* qvals, const void* scal,
                                  const void* order, const void* group_first,
                                  void* next_group, void* out, int n_tasks,
-                                 int dim, int span, int fold, void* stream) {
+                                 int dim, int span, int fold, int qpack,
+                                 void* stream) {
   if (n_tasks <= 0) return 0;
   auto* st = static_cast<cudaStream_t>(stream);
   switch (fold) {
     case 0:
       return launch_scan<0>(codes, factors, starts, sizes, qvals, scal, order,
                             group_first, next_group, out, n_tasks, dim, span,
-                            st);
+                            qpack, st);
     case 1:
       return launch_scan<1>(codes, factors, starts, sizes, qvals, scal, order,
                             group_first, next_group, out, n_tasks, dim, span,
-                            st);
+                            qpack, st);
     case 2:
       return launch_scan<2>(codes, factors, starts, sizes, qvals, scal, order,
                             group_first, next_group, out, n_tasks, dim, span,
-                            st);
+                            qpack, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,9 +5,13 @@ For a batch of queries:
   1. rotate the queries and rank every centroid by fp32 distance; the
      ``probe`` nearest clusters are scanned (stable sort: ties go to the
      lower cluster id, as with ``lax.top_k``);
-  2. quantize the [B, probe] query residuals to 4 bits;
+  2. quantize the [B, probe] query residuals to 4 bits (ops/quantize.py —
+     the fused CUDA kernel on the GPU, which never materialises the
+     [B, probe, D] f32 residual), nibble-packed when D % 256 == 0 as in
+     the JAX search;
   3. rough scan: the RaBitQ estimator on every row of every probed
-     cluster (ops/scan_kernel.py — the CUDA kernel on the GPU), lane-folded
+     cluster (ops/scan_kernel.py — the CUDA kernel on the GPU, on the
+     packed query operand when there is one), lane-folded
      to the best 2 slot-packed values per (task, slot % 128) by default
      (SearchParams.select_reduce);
   4. select the R lowest rough values exactly (per-task top-R, then a
@@ -29,9 +33,9 @@ from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
+    cuda_quantize_residuals,
     cuda_rough_scan,
     pairwise_l2sq,
-    quantize_query_residuals,
     rotate,
 )
 from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
@@ -106,25 +110,30 @@ def rough_scan(
     b = queries.shape[0]
     y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
     cids = _rank_clusters(pairwise_l2sq(y, index.centroids_rot), probe)
-    yr = y[:, None, :] - index.centroids_rot[cids]  # [B, probe, D]
-    ycd = torch.sum(yr * yr, dim=-1)  # [B, probe] exact
-    qq = quantize_query_residuals(
-        yr, index.rand_bias if params.dither else None
+    # The JAX gate of the nibble-packed query operand
+    # (rabitq_tpu/index/search.py:403).
+    qpack = index.dim % 256 == 0
+    qvals, scal = cuda_quantize_residuals(
+        y,
+        index.centroids_rot,
+        cids.contiguous(),
+        index.rand_bias if params.dither else None,
+        pack=qpack,
     )
     offsets = index.offsets
     starts = offsets[cids]  # [B, probe] int32
     sizes = offsets[cids + 1] - starts
-    scal = torch.stack([qq.lower, qq.delta, qq.code_sum, ycd], dim=-1)
     s = b * probe
     rough = cuda_rough_scan(
         index.codes,
         index.factors,
         starts.reshape(s).contiguous(),
         sizes.reshape(s).contiguous(),
-        qq.quantized.reshape(s, index.dim).contiguous(),
-        scal.reshape(s, 4).contiguous(),
+        qvals,
+        scal,
         cap,
         fold,
+        qpack,
     )
     return RoughScan(
         rough=rough.reshape(b, probe * rough.shape[1]),
@@ -230,7 +239,11 @@ def search_with_stats(
 ) -> tuple[torch.Tensor, torch.Tensor, SearchStats]:
     """search() plus per-query SearchStats (rough/precise counters)."""
     if index.base is None:
-        raise ValueError("index has no base rows to rerank against")
+        raise ValueError(
+            "index has no base rows to rerank against (loaded with "
+            "keep_base=False?): the store tier that serves such an index is "
+            "not ported (ROADMAP queue 1 item 6)"
+        )
     cand = estimate_candidates(index, queries, params)
     exact = _exact_rerank(index, _prep_queries(index, queries), cand)
     precise = torch.isfinite(exact).sum(dim=1)

@@ -5,7 +5,13 @@ from rabitq_tpu_torch.ops.int4 import (
     pack_int4,
     unpack_int4,
 )
-from rabitq_tpu_torch.ops.quantize import quantize_query_residuals
+from rabitq_tpu_torch.ops.quantize import (
+    cuda_quantize_residuals,
+    pack_query_nibbles,
+    quantize_query_residuals,
+    quantize_residuals_reference,
+    unpack_query_nibbles,
+)
 from rabitq_tpu_torch.ops.rerank_kernel import (
     cuda_gather_l2,
     gather_l2_reference,
@@ -20,6 +26,10 @@ __all__ = [
     "gen_random_orthogonal",
     "rotate",
     "quantize_query_residuals",
+    "quantize_residuals_reference",
+    "cuda_quantize_residuals",
+    "pack_query_nibbles",
+    "unpack_query_nibbles",
     "pairwise_l2sq",
     "l2sq",
     "cuda_rough_scan",

@@ -1,7 +1,7 @@
 """Rough-distance scan: the CUDA kernel's wrapper and its plain twin.
 
-Port of rabitq_tpu.ops.scan_kernel.pallas_rough_scan (the full output and
-the lane fold; not the nibble-packed query operand). A task t is one
+Port of rabitq_tpu.ops.scan_kernel.pallas_rough_scan: the full output, the
+lane fold and the nibble-packed query operand (``qpack``). A task t is one
 (query, probed cluster) pair; slot j of its output is row ``starts[t] + j``
 of the cluster-sorted index:
 
@@ -21,6 +21,12 @@ replaced by j, so it carries its own slot and orders as the estimate
 does, up to that quantization. A bucket with fewer valid slots than f
 holds +inf, never packed.
 
+With ``qpack`` the query values come nibble-packed, [S, D/2] int8 in the
+JAX split-half layout (byte i = dim i | dim i + D/2 << 4, as
+ops/quantize.py:pack_query_nibbles writes them), and D must be a multiple
+of 256, as the JAX search's gate (rabitq_tpu/index/search.py:403). The
+output is that of the unpacked call on the same values, bit for bit.
+
 ``cuda_rough_scan`` runs the hand-written kernel (csrc/rough_scan.cu) on
 CUDA tensors and the twin ``rough_scan_reference`` on CPU tensors. Before
 the launch, ``group_tasks`` groups the tasks that share a cluster (the
@@ -37,6 +43,7 @@ import torch
 
 from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.ops import _cuda
+from rabitq_tpu_torch.ops.quantize import unpack_query_nibbles
 
 # Bytes of the twin's gathered [chunk, span, D] f32 code window.
 _TWIN_CHUNK_BYTES = 1 << 28
@@ -52,8 +59,8 @@ QPC = 32
 @functools.cache
 def _kernel():
     """The built kernel's C entry point, with its ctypes signature: ten
-    pointers, n_tasks, dim, span, fold, and the stream (pointers and the
-    stream as c_void_p so ctypes does not cut them to 32 bits). Raises
+    pointers, n_tasks, dim, span, fold, qpack, and the stream (pointers
+    and the stream as c_void_p so ctypes does not cut them to 32 bits). Raises
     unless the kernel was built for groups of ``QPC`` tasks."""
     lib = _cuda.load("rough_scan")
     if lib.rabitq_rough_scan_qpc() != QPC:
@@ -62,7 +69,7 @@ def _kernel():
             f"tasks a group, grouping cuts at {QPC}"
         )
     fn = lib.rabitq_rough_scan
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,15 +131,17 @@ def group_tasks(
     return order, group_first
 
 
-def _check(codes, factors, starts, sizes, qvals, scal, span):
+def _check(codes, factors, starts, sizes, qvals, scal, span, qpack):
     n, d = codes.shape
     s = starts.shape[0]
+    if qpack and d % 256:
+        raise ValueError(f"qpack needs dim % 256 == 0, got dim {d}")
     expect = {
         "codes": (codes, torch.int8, (n, d)),
         "factors": (factors, torch.float32, (n, 4)),
         "starts": (starts, torch.int32, (s,)),
         "sizes": (sizes, torch.int32, (s,)),
-        "qvals": (qvals, torch.int8, (s, d)),
+        "qvals": (qvals, torch.int8, (s, d // 2 if qpack else d)),
         "scal": (scal, torch.float32, (s, 4)),
     }
     for name, (t, dtype, shape) in expect.items():
@@ -156,15 +165,19 @@ def rough_scan_reference(
     scal: torch.Tensor,
     span: int,
     fold: int = 0,
+    qpack: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: same contract, any device.
 
     The integer dot is an fp32 batched matmul, exact because every partial
     sum is an integer below 2^24 (|dot| <= 127 * 15 * D) and TF32 is off.
     Tasks run in chunks that bound the [chunk, span, D] gathered window;
-    with a fold each chunk's estimates are packed and folded in turn.
+    with a fold each chunk's estimates are packed and folded in turn. With
+    ``qpack`` the query values are unpacked first.
     """
-    _check(codes, factors, starts, sizes, qvals, scal, span)
+    _check(codes, factors, starts, sizes, qvals, scal, span, qpack)
+    if qpack:
+        qvals = unpack_query_nibbles(qvals)
     n, d = codes.shape
     s = starts.shape[0]
     f = effective_fold(span, fold)
@@ -228,22 +241,25 @@ def cuda_rough_scan(
     scal: torch.Tensor,
     span: int,
     fold: int = 0,
+    qpack: bool = False,
 ) -> torch.Tensor:
     """Rough scan: [S, span] f32, or [S, f * 128] slot-packed bucket minima
     when ``f = effective_fold(span, fold)`` > 0. CUDA tensors launch the
     sm_90a kernel; CPU tensors take the twin. The caller guarantees
     ``starts[t] + min(sizes[t], span) <= N`` for every task. On the card
     D must be a multiple of 32 (the index pads it to a multiple of 128).
+    ``qpack``: qvals are nibble-packed [S, D/2] (module docstring).
 
-    ``cuda_rough_scan.launches`` counts kernel launches (not twin calls).
+    ``cuda_rough_scan.launches`` counts kernel launches (not twin calls),
+    ``cuda_rough_scan.launches_qpack`` those of them with ``qpack``.
     """
     if codes.device.type == "cpu":
         return rough_scan_reference(
-            codes, factors, starts, sizes, qvals, scal, span, fold
+            codes, factors, starts, sizes, qvals, scal, span, fold, qpack
         )
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    _check(codes, factors, starts, sizes, qvals, scal, span)
+    _check(codes, factors, starts, sizes, qvals, scal, span, qpack)
     n, d = codes.shape
     s = starts.shape[0]
     if torch.cuda.get_device_capability(codes.device) != (9, 0):
@@ -272,12 +288,15 @@ def cuda_rough_scan(
             d,
             span,
             f,
+            int(qpack),
             stream,
         )
     if err:
         raise RuntimeError(f"rough_scan kernel launch failed: CUDA error {err}")
     cuda_rough_scan.launches += 1
+    cuda_rough_scan.launches_qpack += int(qpack)
     return out
 
 
 cuda_rough_scan.launches = 0
+cuda_rough_scan.launches_qpack = 0

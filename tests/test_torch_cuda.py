@@ -10,8 +10,12 @@ The rough-scan kernel must equal its twin bit for bit (the estimator is
 written in the twin's operation order with explicitly rounded intrinsics,
 and the int8 tensor-core dot is exact), on random operands and on
 cluster-structured ones whose tasks share windows, in each of its modes
-(the full output and the lane fold at depth 1 and 2), and so must the int4
-kernels (integer arithmetic). The gather-l2 kernel
+(the full output and the lane fold at depth 1 and 2), also on the
+nibble-packed query operand (qpack), where it must equal the unpacked
+kernel on the same values; and so must the int4 kernels (integer
+arithmetic). The fused quantize kernel equals its twin bit for bit in the
+quantized values (packed or not), lo, delta and code_sum, and its ycd =
+sum r^2, summed in another order, within rtol 1e-6. The gather-l2 kernel
 sums the same f32 squares as its twin in another order: rtol 1e-5, atol
 1e-5 * max|out|; both give NaN exactly at positions outside [0, N).
 """
@@ -30,12 +34,16 @@ from chip_smoke import (
     cluster_gather_positions,
     cluster_scan_operands,
     gather_operands,
+    quantize_operands,
     scan_operands,
 )
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
     cuda_int4_dot,
+    cuda_quantize_residuals,
     cuda_rough_scan,
+    pack_query_nibbles,
+    quantize_residuals_reference,
     gather_l2_reference,
     int4_dot_reference,
     pack_int4,
@@ -492,3 +500,125 @@ def test_int4_launch_counters_and_rejections(dev):
     misaligned = torch.zeros(40 * 64 + 4, dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         cuda_int4_dot(misaligned[4:].view(40, 64), b, staged=True)
+
+
+def _quantize_equal(got, want):
+    (qg, sg), (qw, sw) = got, want
+    assert torch.equal(qg, qw)
+    assert torch.equal(sg[:, :3], sw[:, :3])
+    torch.testing.assert_close(sg[:, 3], sw[:, 3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize(
+    "b,probe,d,pack",
+    [
+        (1, 1, 8, False), (5, 3, 8, True), (7, 9, 96, False),
+        (33, 5, 256, True), (3, 2, 4096, True),  # beyond 48 KB of smem
+        (2048, 28, 128, False),  # the sift path's shapes
+        (1024, 80, 1024, True),  # the gist path's shapes (qpack)
+    ],
+)
+def test_quantize_kernel_equals_twin(dev, b, probe, d, pack, dither):
+    y, c, cids, bias = quantize_operands(dev, b, probe, d, seed=b + d)
+    rb = bias if dither else None
+    got = cuda_quantize_residuals(y, c, cids, rb, pack)
+    want = quantize_residuals_reference(y, c, cids, rb, pack)
+    torch.cuda.synchronize()
+    _quantize_equal(got, want)
+
+
+def test_quantize_edge_values(dev):
+    """A zero residual (delta at its guard, every q 0), a constant one, and
+    values halfway between two steps (round half to even)."""
+    y, c, cids, _ = quantize_operands(dev, 4, 3, 64, seed=1)
+    cids[0, 0], cids[1, 1] = 0, 1
+    c[0] = y[0]  # task 0: r = 0
+    y[1], c[1] = 0.0, -2.5  # task 4: r = 2.5 exactly
+    y[2] = torch.arange(64, device=dev, dtype=torch.float32) * 0.5
+    got = cuda_quantize_residuals(y, c, cids)
+    want = quantize_residuals_reference(y, c, cids)
+    torch.cuda.synchronize()
+    _quantize_equal(got, want)
+    tiny = torch.tensor(1e-30, device=dev)
+    assert got[1][0, 1] == tiny and got[1][4, 1] == tiny
+    assert not got[0][0].any() and not got[0][4].any()
+
+
+def test_quantize_launch_counter_and_rejections(dev):
+    y, c, cids, bias = quantize_operands(dev, 3, 4, 64, seed=2)
+    before = cuda_quantize_residuals.launches
+    cuda_quantize_residuals(y, c, cids, bias, True)
+    assert cuda_quantize_residuals(y[:0], c, cids[:0])[0].shape == (0, 64)
+    assert cuda_quantize_residuals.launches == before + 1
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_quantize_residuals(y[:, :60].contiguous(),
+                                c[:, :60].contiguous(), cids)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_quantize_residuals(y, c, cids[:, ::2])
+
+
+@pytest.mark.parametrize("fold", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["random", "clusters"])
+@pytest.mark.parametrize("d", [256, 1024])
+def test_qpack_kernel_equals_twin_and_unpacked(dev, d, kind, fold):
+    if kind == "random":
+        ops = list(scan_operands(dev, 5000, 700, 384, d, seed=d))
+    else:
+        ops = list(cluster_scan_operands(dev, 300, 128, 16, 384, d, seed=d))
+    unpacked = cuda_rough_scan(*ops, 384, fold)
+    ops[4] = pack_query_nibbles(ops[4])
+    got = cuda_rough_scan(*ops, 384, fold, True)
+    want = rough_scan_reference(*ops, 384, fold, True)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and _same_bits(got, unpacked)
+
+
+def test_qpack_launch_counter_and_rejections(dev):
+    ops = list(scan_operands(dev, 500, 8, 300, 256, seed=4))
+    ops[4] = pack_query_nibbles(ops[4])
+    before = (cuda_rough_scan.launches, cuda_rough_scan.launches_qpack)
+    cuda_rough_scan(*ops, 300, 2, True)
+    assert (cuda_rough_scan.launches, cuda_rough_scan.launches_qpack) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="256"):
+        small = list(scan_operands(dev, 500, 8, 300, 128, seed=4))
+        small[4] = pack_query_nibbles(small[4])
+        cuda_rough_scan(*small, 300, 0, True)
+
+
+def test_search_at_1024d_runs_quantize_and_qpack_once(dev, tmp_path):
+    """A 960-d index (padded to 1024): one batch launches the quantize
+    kernel once and the scan once in qpack mode; the results equal the CPU
+    path's but at near-ties, and a dump reloaded on the card searches
+    alike."""
+    from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
+
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((12, 960)).astype(np.float32)
+    base = (centers[rng.integers(0, 12, 4000)]
+            + 0.3 * rng.standard_normal((4000, 960))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    assert idx.dim == 1024
+    queries = torch.from_numpy(base[:32] + 0.05)
+    params = rt.SearchParams(probe=4, topk=10, rerank=40)
+    before = (cuda_quantize_residuals.launches, cuda_rough_scan.launches,
+              cuda_rough_scan.launches_qpack)
+    d_gpu, i_gpu = rt.search(idx, queries.to(dev), params)
+    torch.cuda.synchronize()
+    assert (cuda_quantize_residuals.launches, cuda_rough_scan.launches,
+            cuda_rough_scan.launches_qpack) == tuple(x + 1 for x in before)
+    cpu_idx = dataclasses.replace(idx, **{
+        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
+        if isinstance(getattr(idx, f.name), torch.Tensor)
+    })
+    d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
+    same = i_gpu.cpu() == i_cpu
+    assert same.float().mean() >= 0.98
+    torch.testing.assert_close(d_gpu.cpu()[same], d_cpu[same], rtol=1e-5,
+                               atol=1e-5)
+    dump_to_dir(idx, tmp_path)
+    loaded = load_from_dir(tmp_path, device=dev)
+    d2, i2 = rt.search(loaded, queries.to(dev), params)
+    assert torch.equal(i2, i_gpu) and torch.equal(d2, d_gpu)

@@ -1,0 +1,100 @@
+"""Parity of the port's fused residual quantization with the JAX package's.
+
+``cuda_quantize_residuals`` runs its plain twin (quantize_residuals_reference)
+on CPU tensors. Held against ``rabitq_tpu.ops.quantize
+.quantize_query_residuals`` applied to the same residuals y[b] -
+centroids[cids[b, j]]: q, lo, delta and code_sum exactly, ycd = sum r^2 to
+f32 rounding (rtol 1e-6: two orders of summing D f32 squares), and the
+packed bytes against the JAX search's packing expression
+(rabitq_tpu/index/search.py:404-407).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rabitq_tpu.ops.quantize import quantize_query_residuals
+from rabitq_tpu_torch.ops import (
+    cuda_quantize_residuals,
+    pack_query_nibbles,
+    quantize_residuals_reference,
+    unpack_query_nibbles,
+)
+
+
+def _inputs(seed, b, probe, d, k=50):
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((b, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    cids = np.stack([rng.choice(k, probe, replace=False) for _ in range(b)])
+    bias = rng.random(d).astype(np.float32)
+    c[cids[0, 0]] = y[0]  # a zero residual: delta falls to the guard
+    return y, c, cids.astype(np.int64), bias
+
+
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize("d,pack", [(128, False), (256, True), (1024, True),
+                                    (64, True), (96, False)])
+def test_twin_matches_jax_quantize(d, pack, dither):
+    b, probe = 6, 5
+    y, c, cids, bias = _inputs(d, b, probe, d)
+    yr = jnp.asarray(y)[:, None, :] - jnp.asarray(c)[cids]
+    jq = quantize_query_residuals(yr, jnp.asarray(bias) if dither else None)
+    ycd = np.asarray(jnp.sum(yr * yr, axis=-1)).reshape(-1)
+    q_want = np.asarray(jq.quantized).reshape(b * probe, d)
+    if pack:
+        # The JAX search's packing of its qpack operand.
+        qu = jnp.asarray(q_want).astype(jnp.uint8)
+        q_want = np.asarray(
+            (qu[:, : d // 2] | (qu[:, d // 2 :] << 4)).astype(jnp.int8)
+        )
+
+    qvals, scal = cuda_quantize_residuals(
+        torch.from_numpy(y), torch.from_numpy(c), torch.from_numpy(cids),
+        torch.from_numpy(bias) if dither else None, pack=pack,
+    )
+    assert qvals.dtype == torch.int8
+    assert qvals.shape == (b * probe, d // 2 if pack else d)
+    np.testing.assert_array_equal(qvals.numpy(), q_want)
+    scal = scal.numpy()
+    for col, want in enumerate((jq.lower, jq.delta, jq.code_sum)):
+        np.testing.assert_array_equal(scal[:, col],
+                                      np.asarray(want).reshape(-1))
+    np.testing.assert_allclose(scal[:, 3], ycd, rtol=1e-6)
+    assert scal[0, 1] == np.float32(1e-30) and scal[0, 3] == 0
+
+
+def test_pack_round_trip():
+    q = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 16, (9, 512)).astype(np.int8)
+    )
+    p = pack_query_nibbles(q)
+    assert p.shape == (9, 256) and p.dtype == torch.int8
+    assert torch.equal(unpack_query_nibbles(p), q)
+    assert int(p.view(torch.uint8)[0, 0]) == int(q[0, 0]) | int(q[0, 256]) << 4
+
+
+def test_wrapper_runs_twin_on_cpu_without_counting():
+    y, c, cids, bias = map(torch.from_numpy, _inputs(1, 3, 4, 256))
+    before = cuda_quantize_residuals.launches
+    got = cuda_quantize_residuals(y, c, cids, bias, pack=True)
+    want = quantize_residuals_reference(y, c, cids, bias, pack=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert cuda_quantize_residuals.launches == before
+    qv, sc = cuda_quantize_residuals(y[:0], c, cids[:0], None)
+    assert qv.shape == (0, 256) and sc.shape == (0, 4)
+
+
+def test_wrapper_rejects_bad_operands():
+    y, c, cids, bias = map(torch.from_numpy, _inputs(2, 3, 4, 64))
+    with pytest.raises(ValueError, match="cids"):
+        cuda_quantize_residuals(y, c, cids.int())
+    with pytest.raises(ValueError, match="centroids_rot"):
+        cuda_quantize_residuals(y, c[:, :32], cids)
+    with pytest.raises(ValueError, match="rand_bias"):
+        cuda_quantize_residuals(y, c, cids, bias[:8])
+    with pytest.raises(ValueError, match="even dim"):
+        cuda_quantize_residuals(y[:, :63], c[:, :63], cids, pack=True)
+    with pytest.raises(ValueError, match="device"):
+        cuda_quantize_residuals(*(t.to("meta") for t in (y, c, cids)))

@@ -13,6 +13,10 @@ The lane fold (``fold`` 1 or 2) is held bit for bit against a numpy oracle
 built from the port's own unfolded twin, and against
 ``pallas_rough_scan(reduce=1|2)`` in interpret mode within that tolerance
 plus the packing quantum, where a near-tie may swap a bucket's kept slot.
+
+The nibble-packed query operand (``qpack``, D % 256 == 0) is held bit for
+bit against the unpacked twin on the same values, and against
+``pallas_rough_scan(qpack=True)`` in interpret mode in each mode.
 """
 
 import importlib
@@ -29,7 +33,11 @@ from conftest import make_clustered_dataset
 from rabitq_tpu.index.index import padded_offsets
 from rabitq_tpu.ops import pairwise_l2sq, quantize_query_residuals, rotate
 from rabitq_tpu.ops.scan_kernel import pallas_rough_scan
-from rabitq_tpu_torch.ops import cuda_rough_scan, rough_scan_reference
+from rabitq_tpu_torch.ops import (
+    cuda_rough_scan,
+    pack_query_nibbles,
+    rough_scan_reference,
+)
 from rabitq_tpu_torch.ops.scan_kernel import (
     QPC,
     effective_fold,
@@ -578,3 +586,73 @@ def test_estimate_candidates_fold_matches_jax_composition(jax_fold_index):
         only_w = sorted(lb_w[q][np.isin(pos_w[q], list(want - got))])
         assert len(only_g) == len(only_w) <= 2
         np.testing.assert_allclose(only_g, only_w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("fold", [0, 1, 2])
+@pytest.mark.parametrize("d", [256, 512])
+def test_qpack_twin_equals_unpacked_twin(rng, d, fold):
+    """Edge cases included: size 0, size == span, size > span, row N-1."""
+    n, span = 1500, 384
+    sizes = [0, span, 1, 200, span + 9, 129, 300, 77]
+    starts = [3, 0, n - 1, 500, 900, 40, n - span, 10]
+    ops = list(map(torch.from_numpy,
+                   _random_operands(rng, n, d, span, sizes, starts)))
+    want = rough_scan_reference(*ops, span, fold)
+    ops[4] = pack_query_nibbles(ops[4])
+    got = cuda_rough_scan(*ops, span, fold, True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_qpack_rejects_other_dims(rng):
+    ops = list(map(torch.from_numpy,
+                   _random_operands(rng, 300, 128, 128, [8, 9], [0, 5])))
+    ops[4] = pack_query_nibbles(ops[4])
+    with pytest.raises(ValueError, match="256"):
+        cuda_rough_scan(*ops, 128, 0, True)
+    ops = list(map(torch.from_numpy,
+                   _random_operands(rng, 300, 256, 128, [8, 9], [0, 5])))
+    with pytest.raises(ValueError, match="qvals"):  # unpacked values
+        cuda_rough_scan(*ops, 128, 0, True)
+
+
+@pytest.fixture(scope="module")
+def jax_qpack_index():
+    """A 256-d JAX index (the qpack gate holds) of capacity > 256 (both
+    fold depths fold), and 2 queries."""
+    rng = np.random.default_rng(12)
+    base, centers = make_clustered_dataset(rng, n=2400, dim=256, k=6)
+    jidx = rq.build_index(base, centers, key=jax.random.key(1), bits=4)
+    assert jidx.dim % 256 == 0 and jidx.capacity > 256
+    return jidx, base[:2] + 0.01
+
+
+@pytest.mark.parametrize("reduce", [0, 1, 2])
+def test_qpack_twin_matches_pallas_kernel_interpret(jax_qpack_index, reduce):
+    """pallas_rough_scan(qpack=True) on the aligned path that search uses,
+    against the port's packed twin, which equals its unpacked twin bit for
+    bit."""
+    jidx, queries = jax_qpack_index
+    cids, starts, sizes, qvals, scal = _scan_inputs(jidx, queries, 4)
+    packed = pack_query_nibbles(torch.from_numpy(np.array(qvals)))
+    span = jidx.capacity
+    want, _, _ = pallas_rough_scan(
+        jidx.codes_pm1, jidx.factors_tiled, starts, sizes,
+        jnp.asarray(packed.numpy()), scal, span=span, k_max=jidx.k,
+        interpret=True, cids=cids, starts_k=padded_offsets(jidx.offsets)[:-1],
+        aligned=True, reduce=reduce, qpack=True,
+    )
+    pidx = port_index_from_jax(jidx)
+    ops = [pidx.codes, pidx.factors,
+           *(torch.from_numpy(np.array(a)) for a in (starts, sizes))]
+    scal_t = torch.from_numpy(np.array(scal))
+    got = cuda_rough_scan(*ops, packed, scal_t, span, reduce, True).numpy()
+    unpacked = cuda_rough_scan(
+        *ops, torch.from_numpy(np.array(qvals)), scal_t, span, reduce
+    ).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), unpacked.view(np.int32))
+    want = np.asarray(want)
+    if reduce:
+        full = cuda_rough_scan(*ops, packed, scal_t, span, 0, True).numpy()
+        _assert_fold_close(got, want, full, np.asarray(sizes), span, reduce)
+    else:
+        _assert_scan_close(got, want)
