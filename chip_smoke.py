@@ -16,6 +16,9 @@ then non-zero and no result line is printed):
        (B=2048, probe 28, D=128, unpacked) and the gist shape (B=1024,
        probe 80, D=1024, nibble-packed), dither off and on: quantized
        values, lo, delta and code_sum bit-equal, ycd within rtol 1e-6;
+       beside its bound, the kernel's launch plan and the bytes its design
+       reads through L2 (each task's centroid row, y once for each query
+       of a lane group's run, cids) with the rate they give;
        rough_scan, bit-equal, in each of its modes (the lane fold at depth
        2, search's default, and 1, and the full [S, span] output), at the
        sift shape (D=128, span=384, S=2048*28) and the gist shape (D=1024,
@@ -406,6 +409,24 @@ def quantize_bound(y, centroids, cids, pack, dither):
     t_ops = 9 * s * dim / FP32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e9)
+
+
+def quantize_l2_reads(s, probe, dim, pack, dither):
+    """Bytes the quantize kernel reads through L2 in one call of s tasks as
+    it is designed, and its launch plan: on the register path each task's
+    centroid row, y[b] once for each query in a lane group's run of tasks,
+    the dither once a group, and cids; on the shared-memory path a y row
+    and a centroid row (and the dither) a task."""
+    from rabitq_tpu_torch.ops.quantize import quantize_plan
+
+    plan = quantize_plan(s, dim, pack, dither)
+    row = 4 * dim
+    if not plan.lanes:
+        return s * row * (2 + dither) + 8 * s, plan
+    starts = np.arange(0, s, plan.run)
+    ends = np.minimum(starts + plan.run, s)
+    y_rows = int(((ends - 1) // probe - starts // probe + 1).sum())
+    return s * row + y_rows * row + len(starts) * row * dither + 8 * s, plan
 
 
 def gather_operands(dev, n, dim, b, r, seed=0):
@@ -802,6 +823,7 @@ def check_quantize(dev, smi, label, b, probe, dim, pack):
         3)
     bound_ms, bound_by, gb = quantize_bound(y, centroids, cids, pack, False)
     s = cids.numel()
+    l2_bytes, plan = quantize_l2_reads(s, probe, dim, pack, False)
     log(f"[kernel quantize {label}] B={b} probe={probe} D={dim} S={s} "
         f"{'packed [S, D/2]' if pack else 'unpacked [S, D]'}: dither off and "
         f"on, quantized values, lo, delta and code_sum bit-equal to the twin, "
@@ -809,7 +831,14 @@ def check_quantize(dev, smi, label, b, probe, dim, pack):
         f"{kernel_ms:.4f} ms (device, L2 cold), twin {twin_ms:.4f} ms; "
         f"{int(torch.unique(cids).numel())} distinct centroid rows, reads+"
         f"writes {gb:.4f} GB, bound {bound_ms:.4f} ms by {bound_by}, kernel "
-        f"at {100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+        f"at {100 * bound_ms / kernel_ms:.1f}% of bound; plan {plan.lanes} "
+        f"lanes a task, {plan.warps} warps a block, {plan.blocks} blocks, "
+        f"runs of {plan.run} tasks; by the design's count (from the plan, "
+        f"not measured) it reads {l2_bytes / 1e9:.4f} GB through L2 (each "
+        f"task's centroid row, y once for each query of a run, cids), "
+        f"{l2_bytes / kernel_ms / 1e9:.2f} TB/s at the kernel's time, "
+        f"against {gb / kernel_ms:.2f} TB/s counted in bound "
+        f"bytes [{smi}]")
     return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=twin_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1469,8 +1498,8 @@ def main() -> int:
          "in_search": {label: in_search(run) for label, run in search_runs}},
         {"name": "quantize_residuals", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/quantize.cu",
-         "replaces": "rabitq_tpu/index/search.py:392 (an XLA fusion, not a "
-                     "Pallas kernel)",
+         "replaces": "rabitq_tpu/index/search.py:335 (an XLA fusion, with "
+                     "the packing at :403; not a Pallas kernel)",
          **launches("quantize"),
          "max_abs_err": max(r["max_abs_err"] for r in quants.values()),
          **{key: quants["gist"][key]

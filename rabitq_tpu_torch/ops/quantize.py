@@ -124,17 +124,47 @@ def quantize_residuals_reference(
 
 
 @functools.cache
-def _kernel():
-    """The built kernel's C entry point: six pointers, n_tasks, probe,
-    dim, pack, the three scale constants as f32, and the stream (pointers
-    and the stream as c_void_p so ctypes does not cut them to 32 bits)."""
-    fn = _cuda.load("quantize").rabitq_quantize_residuals
-    fn.argtypes = (
+def _library():
+    """The built kernel library. Its launcher takes six pointers, n_tasks,
+    probe, dim, pack, the three scale constants as f32, and the stream
+    (pointers and the stream as c_void_p so ctypes does not cut them to 32
+    bits)."""
+    lib = _cuda.load("quantize")
+    lib.rabitq_quantize_residuals.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
         + [ctypes.c_void_p]
     )
-    fn.restype = ctypes.c_int
-    return fn
+    lib.rabitq_quantize_residuals.restype = ctypes.c_int
+    lib.rabitq_quantize_plan.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)
+    ]
+    lib.rabitq_quantize_plan.restype = ctypes.c_int
+    return lib
+
+
+class QuantizePlan(NamedTuple):
+    """How the kernel launches on the current card: ``lanes`` a task (8 or
+    32 on the register path, 0 on the shared-memory path), ``warps`` a
+    block, 16-byte output ``units`` a lane, ``blocks``, and the ``run`` of
+    consecutive tasks each lane group takes."""
+
+    lanes: int
+    warps: int
+    units: int
+    blocks: int
+    run: int
+
+
+def quantize_plan(n_tasks: int, dim: int, pack: bool,
+                  dither: bool) -> QuantizePlan:
+    """The launch plan the built kernel takes for a call of ``n_tasks``
+    tasks on the current CUDA device (builds the kernel at first use)."""
+    out = (ctypes.c_int * 5)()
+    err = _library().rabitq_quantize_plan(n_tasks, dim, int(pack),
+                                          int(dither), out)
+    if err:
+        raise RuntimeError(f"quantize plan failed: CUDA error {err}")
+    return QuantizePlan(*out)
 
 
 def cuda_quantize_residuals(
@@ -152,9 +182,12 @@ def cuda_quantize_residuals(
     y [B, D] f32, centroids_rot [K, D] f32, cids [B, probe] int64 in
     [0, K) (the caller's guarantee), rand_bias [D] f32 or None (None:
     round to nearest; else floor + dither). CUDA tensors launch the sm_90a
-    kernel, which needs D % 8 == 0; CPU tensors take the twin. The kernel
-    equals the twin bit for bit in qvals, lo, delta and code_sum; its ycd
-    sums in another order (f32 rounding).
+    kernel, which needs D % 8 == 0 (lane groups on runs of tasks with the
+    query, r and the next task's centroid row in registers, at D <= 1024 in
+    whole 16-byte output words; a warp a task with r in shared memory
+    otherwise: ``quantize_plan``); CPU tensors take
+    the twin. The kernel equals the twin bit for bit in qvals, lo, delta
+    and code_sum; its ycd sums in another order (f32 rounding).
 
     ``cuda_quantize_residuals.launches`` counts kernel launches (not twin
     calls).
@@ -184,7 +217,7 @@ def cuda_quantize_residuals(
     scal = torch.empty((s, 4), dtype=torch.float32, device=y.device)
     if s == 0:
         return qvals, scal
-    launch = _kernel()
+    launch = _library().rabitq_quantize_residuals
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(

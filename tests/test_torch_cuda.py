@@ -49,6 +49,7 @@ from rabitq_tpu_torch.ops import (
     pack_int4,
     rough_scan_reference,
 )
+from rabitq_tpu_torch.ops.quantize import quantize_plan
 from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
 from rabitq_tpu_torch.tools import int4probe
 
@@ -517,6 +518,15 @@ def _quantize_equal(got, want):
         (33, 5, 256, True), (3, 2, 4096, True),  # beyond 48 KB of smem
         (2048, 28, 128, False),  # the sift path's shapes
         (1024, 80, 1024, True),  # the gist path's shapes (qpack)
+        (3, 100, 1024, True),  # probe not a multiple of a block's groups
+        (4, 1, 128, False),  # probe 1: one 8-lane group busy of a warp's four
+        (5, 3, 128, False),  # the last 8-lane group of a block partial
+        (600, 29, 128, False),  # runs of tasks that cross queries
+        (6, 7, 136, False), (4, 9, 520, True),  # rows not whole 16-byte units
+        (5, 11, 160, False), (3, 21, 544, True),  # lanes without a unit
+        (2, 33, 256, False), (2, 33, 256, True),  # 8 lanes, 8 slots a lane
+        (3, 17, 1024, False),  # two units a lane
+        (3, 5, 1032, True),  # just above the register path
     ],
 )
 def test_quantize_kernel_equals_twin(dev, b, probe, d, pack, dither):
@@ -543,6 +553,31 @@ def test_quantize_edge_values(dev):
     tiny = torch.tensor(1e-30, device=dev)
     assert got[1][0, 1] == tiny and got[1][4, 1] == tiny
     assert not got[0][0].any() and not got[0][4].any()
+
+
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize(
+    "b,probe,d,pack", [(600, 28, 128, False), (200, 80, 1024, True)]
+)
+def test_quantize_zero_residual_after_first_task(dev, b, probe, d, pack,
+                                                 dither):
+    """Zero residuals (delta at its guard, every q 0) in tasks that follow
+    others in their lane group's run, whose row was loaded while the one
+    before was quantized, and in tasks that start a run."""
+    y, c, cids, bias = quantize_operands(dev, b, probe, d, seed=3)
+    run = quantize_plan(cids.numel(), d, pack, dither).run
+    assert run > 1
+    tasks = [t for t in range(probe, 2 * probe) if t % run in (0, run - 1)]
+    for t in tasks[:4]:
+        c[cids[1, t - probe]] = y[1]
+    rb = bias if dither else None
+    got = cuda_quantize_residuals(y, c, cids, rb, pack)
+    want = quantize_residuals_reference(y, c, cids, rb, pack)
+    torch.cuda.synchronize()
+    _quantize_equal(got, want)
+    for t in tasks[:4]:
+        assert got[1][t, 1] == 1e-30 and got[1][t, 3] == 0
+        assert not got[0][t].any()
 
 
 def test_quantize_launch_counter_and_rejections(dev):

@@ -98,3 +98,73 @@ def test_wrapper_rejects_bad_operands():
         cuda_quantize_residuals(y[:, :63], c[:, :63], cids, pack=True)
     with pytest.raises(ValueError, match="device"):
         cuda_quantize_residuals(*(t.to("meta") for t in (y, c, cids)))
+
+
+def test_quantize_ab_refuses_without_a_card():
+    """The A/B tool parses its sources, then refuses to time on the CPU."""
+    from rabitq_tpu_torch.tools import quantize_ab
+
+    assert quantize_ab.main(["--other", "old=old.cu"]) == 1
+    with pytest.raises(SystemExit):
+        quantize_ab.main(["--other", "kernel=old.cu"])  # name taken
+    with pytest.raises(SystemExit):
+        quantize_ab.main(["--other", "old.cu"])  # no name
+
+
+def test_quantize_ab_names_register_counts_by_instance():
+    """ptxas -v output read into registers per kernel instance."""
+    from rabitq_tpu_torch.tools import quantize_ab
+
+    ptxas = (
+        "ptxas info : Compiling entry function '_ZN4_GLOBAL15quantize_kernel"
+        "ILi32ELi1ELb1ELb0EEEvPKf' for 'sm_90a'\n"
+        "ptxas info : Used 104 registers, used 1 barriers\n"
+        "ptxas info : Compiling entry function '_ZN4_GLOBAL20quantize_kernel"
+        "_smemEPKf' for 'sm_90a'\n"
+        "ptxas info : Used 48 registers\n"
+    )
+    assert quantize_ab.registers(ptxas) == {
+        "32 lanes, 1 units, packed": 104, "shared-memory path": 48}
+
+
+@pytest.mark.parametrize("dither", [False, True])
+def test_kernel_fast_rule_emulated_equals_twin(dither):
+    """The CUDA kernel's division-free rule (csrc/quantize.cu, qfast),
+    emulated in numpy f32: z = fma(v, 1/delta, -lo/delta) [+ bias - 1/2],
+    clamped, rounded by adding 1.5 * 2^23. Wherever it does not flag the
+    task (a value within 2^-16 of a rounding edge, or |lo/delta| >= 16),
+    its values equal the twin's exact rule; on Gaussian residuals it flags
+    few tasks."""
+    from rabitq_tpu_torch.ops.quantize import quantize_query_residuals as twin
+
+    f = np.float32
+    rng = np.random.default_rng(7)
+    bias = rng.random(256).astype(f)
+    edge = f(0.5) - f(2.0 ** -16)
+    big = f(1.5 * 2 ** 23)
+    flagged = {"gauss": 0, "other": 0}
+    for trial in range(600):
+        scale = f(10.0 ** rng.uniform(-20, 20))
+        v = rng.standard_normal(256).astype(f) * scale
+        kind = "gauss" if trial % 3 == 2 else "other"
+        if trial % 3 == 0:  # values on a grid: quotients near half-steps
+            v = (np.round(v / scale * 7) * scale / f(7)).astype(f)
+        elif trial % 3 == 1:  # one-signed: |lo / delta| large
+            v = (v + f(rng.uniform(-8, 8)) * scale * f(3)).astype(f)
+        qq = twin(torch.from_numpy(v[None]),
+                  torch.from_numpy(bias) if dither else None)
+        lo, delta = qq.lower.numpy()[0], qq.delta.numpy()[0]
+        rcp = f(1) / delta
+        c0 = f(-lo * rcp)
+        z = (v.astype(np.float64) * np.float64(rcp) + np.float64(c0)).astype(f)
+        if dither:
+            z = (z + (bias - f(0.5)).astype(f)).astype(f)
+        z = np.clip(z, f(0), f(15)).astype(f)
+        t = (z + big).astype(f)
+        near = np.abs((z - (t - big).astype(f)).astype(f)) > edge
+        if near.any() or not abs(c0) < 16:
+            flagged[kind] += 1
+            continue
+        np.testing.assert_array_equal(t.view(np.uint32) & 0xFF,
+                                      qq.quantized.numpy()[0])
+    assert flagged["gauss"] <= 20  # of 200 Gaussian tasks
