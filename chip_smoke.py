@@ -30,7 +30,11 @@ then non-zero and no result line is printed):
        kernel on the same values; five checked calls profiled, each after
        a read that evicts the L2, splitting their device time into the
        kernel and its grouping glue; the bound counts the query bytes and
-       the output the mode writes;
+       the output the mode writes; then on the cluster-structured operands
+       in each mode with the row-filter penalty operand (1% and 50% of the
+       rows +inf): five calls bit-equal to the twin, each after an L2
+       flush, beside five calls without the penalty on the same operands
+       (device time, profile);
        gather_l2 at the gist shape (N=1.2M, D=1024, B=1024, R=150) and
        the sift shape (D=128, B=2048, R=32), with duplicate positions and
        row N-1, and at the sift shape on cluster-local positions (each
@@ -49,24 +53,56 @@ then non-zero and no result line is printed):
      recall@10 >= 0.93, every rough_scan call launching each of the three
      search kernels once (the scan unpacked); 64 queries re-searched on
      the CPU path (the twins, the same params) must agree;
-  6. [saved]  the sift index dumped with dump_to_dir to a temporary
+  6. [sift filter] allowlists of 50%, 10% and 1% of the ids (numpy,
+     seeded): filtered search_many of the 16,384 queries, every id allowed
+     and every distance exact, recall@10 against brute force over the
+     allowed rows on the card >= 0.90 / 0.84 / 0.60 (logged beside the
+     JAX package's TPU figures, no target), device and host ms a batch,
+     one profiled batch's device busy time beside the unfiltered fold-off
+     run's, the scan launched with the penalty each batch; a deny-mode
+     and a RowFilterContext build of the 10% filter give its penalty and
+     ids; one filtered batch under sync debug mode "error";
+  7. [sift adaptive] search_adaptive from probe 8, max_probe 256 (probe
+     used, recall, ms a batch), with the centroid and the annulus
+     ranking; the certificate checked against brute force on 256 queries
+     and 256 base rows at two probes: no row closer than a certified
+     query's k-th result lies outside its probed clusters; the same check
+     on a corpus of well-separated clusters (200k x 128, 1024 centers,
+     spread 0.6), where the certificate certifies;
+  8. [sift autotune] autotune on 2,048 of the queries at target recall@10
+     0.95: the curve and the pick;
+  9. [saved]  the sift index dumped with dump_to_dir to a temporary
      directory and loaded back onto the card with load_from_dir;
      search_many of the 16,384 queries must return the in-memory index's
      ids and distances exactly (dump and load seconds logged);
-  7. [cli]    python -m rabitq_tpu_torch.cli, in-process (main(argv)), on
+  10. [cli]   python -m rabitq_tpu_torch.cli, in-process (main(argv)), on
      the sift data written as fvecs/ivecs: build (bits 4, spill 0.2), run
      (probe 28, rerank 32, topk 10, batch 2048) at recall@10 >= 0.93, run
      on the [saved] directory at the sift path's recall, run
-     --rerank-mode heap over 64 queries, and train on the 260k sample (2
-     iterations); the temporary files are deleted after;
-  8. [gist]   the GIST-like path at full width: 1M x 960 corpus, 4,096
+     --rerank-mode heap over 64 queries, run --autotune 0.95 and run
+     --adaptive on the saved directory over 2,048 queries, and train on
+     the 260k sample (2 iterations); the temporary files are deleted
+     after;
+  11. [sift mutate] delete 10,000 ids (none comes back), insert 10,000
+     rows (256 queries at inserted rows return their ids first, at
+     distance 0 to f32 rounding), update 1,000 ids (the new vectors answer
+     with them, the old ones no longer); recall@10 against brute force
+     over the live corpus >= 0.93, also under a deny filter of 10% of the
+     ids, every distance its id's live vector's; one filtered batch under
+     sync debug mode "error"; dump_to_dir and load_from_dir give the same
+     ids and distances; compact keeps the live ids at recall >= 0.93
+     (seconds logged); device ms a batch with and without the memtable;
+  12. [gist]  the GIST-like path at full width: 1M x 960 corpus, 4,096
      queries, k-means (k=4096, 260k sample, 15 iterations), the same
      build, search_many over 4 batches of 1024 at rerank 150, topk 100,
      probes 48/64/80/96; at probe 80 recall@100 >= 0.93, 4 rough_scan
      calls with 4 launches of each search kernel, the scan's all in qpack
      mode, and every returned distance equal to its id's exact distance.
      Slots without a distinct id (a spilled build can index an id twice)
-     are counted and scored as misses.
+     are counted and scored as misses. Then [gist filter]: a 1% allowlist
+     at probe 80 over the 4 batches, every id allowed and every distance
+     exact, the scan in qpack mode with the penalty; recall@100 against
+     the allowed rows logged (no floor).
   Every probe of both paths runs four times, in turns with the default
   SearchParams (the lane fold on) and with select_reduce=False (the full
   scan output): on, off, off, on. A [<path> fold] line sets the two modes
@@ -143,6 +179,8 @@ L2_FLUSH_BYTES = 256 << 20
 COLD_CALLS = 20
 # The scan's modes: fold depth -> name. Search folds at depth 2 by default.
 SCAN_MODES = {2: "fold 2", 1: "fold 1", 0: "full"}
+# Shares of the rows the penalty operand filters in the kernel checks.
+PENALTY_DENSITIES = (0.01, 0.5)
 
 
 def log(msg: str) -> None:
@@ -295,9 +333,11 @@ def cluster_scan_operands(dev, n_clusters, b, probe, span, dim, seed=0,
     return (codes, factors, starts.int(), t_sizes.int(), qvals, scal)
 
 
-def scan_bound(codes, starts, sizes, span, out_width, q_bytes=None):
+def scan_bound(codes, starts, sizes, span, out_width, q_bytes=None,
+               penalty=False):
     """The least time of one scan on these operands: each probed row's code
-    and factors read once (the union of the tasks' windows), each task's
+    and factors (and with ``penalty`` its 4-byte penalty) read once (the
+    union of the tasks' windows), each task's
     query values (``q_bytes``: D, or D/2 nibble-packed), scalars, start
     and size read once, the [S, out_width] f32 output written once
     (out_width = span unfolded, depth * 128 folded); against 2 * D int8
@@ -312,7 +352,7 @@ def scan_bound(codes, starts, sizes, span, out_width, q_bytes=None):
     diff.index_add_(0, starts.long(), one)
     diff.index_add_(0, starts.long() + sz, -one)
     rows = int((torch.cumsum(diff, 0)[:n] > 0).sum())
-    nbytes = (rows * (dim + 16) + s * (q_bytes + 16 + 8)
+    nbytes = (rows * (dim + 16 + 4 * penalty) + s * (q_bytes + 16 + 8)
               + s * out_width * 4)
     ops = 2 * dim * int(sz.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
@@ -505,6 +545,7 @@ def run_captured(fn):
     tsearch.rough_scan = counted
     try:
         cuda_rough_scan.launches = cuda_rough_scan.launches_qpack = 0
+        cuda_rough_scan.launches_penalty = 0
         cuda_gather_l2.launches = cuda_quantize_residuals.launches = 0
         out = fn()
         torch.cuda.synchronize()
@@ -515,6 +556,7 @@ def run_captured(fn):
         "quantize": cuda_quantize_residuals.launches,
         "rough_scan": cuda_rough_scan.launches,
         "rough_scan qpack": cuda_rough_scan.launches_qpack,
+        "rough_scan penalty": cuda_rough_scan.launches_penalty,
         "gather_l2": cuda_gather_l2.launches,
     }
 
@@ -537,7 +579,7 @@ def stage_event(prof, label):
     return found[0]
 
 
-def profile_batch(rt, index, q, params, label, smi):
+def profile_batch(rt, index, q, params, label, smi, row_filter=None):
     """Where one batch's device time goes (torch.profiler, CUPTI). The
     scan wrapper's call and the candidate selection run inside
     record_function ranges, so the kernels they launch are found by their
@@ -566,7 +608,7 @@ def profile_batch(rt, index, q, params, label, smi):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rt.search(index, q, params)
+            rt.search(index, q, params, row_filter)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -646,7 +688,7 @@ def scan_in_search(rt, index, q, params):
         rt.search(index, q, params)
     finally:
         tsearch.cuda_rough_scan, tsearch.cuda_gather_l2 = wrapper, gather
-    codes, _, starts, sizes, qvals, _, span, fold, qpack = seen[0]
+    codes, _, starts, sizes, qvals, _, span, fold, qpack = seen[0][:9]
     pos, n, dim = gathered[0]
     g_bound_ms, _, _, g_rows = gather_bound(pos, n, dim)
     f = effective_fold(span, fold)
@@ -659,13 +701,13 @@ def scan_in_search(rt, index, q, params):
                 gather_rows=g_rows, gather_bound_ms=g_bound_ms)
 
 
-def check_no_host_sync(rt, index, q, params, label):
+def check_no_host_sync(rt, index, q, params, label, row_filter=None):
     """One search batch under torch.cuda.set_sync_debug_mode("error"): any
     op that synchronizes with the host raises."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rt.search(index, q, params)
+        rt.search(index, q, params, row_filter)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -781,6 +823,90 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False,
     return dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=twin_ms,
                 kernel_ms=kernel_ms, glue_ms=glue_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def scan_penalty(dev, n_rows, density, seed=0):
+    """A row filter's penalty operand: [n_rows] f32, +inf on a random
+    ``density`` share of the rows, else 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    filtered = torch.rand(n_rows, generator=gen, device=dev) < density
+    return torch.where(filtered, torch.inf, 0.0).to(torch.float32)
+
+
+def check_scan_penalty(smi, label, ops, span, fold, qpack, density):
+    """The scan kernel with the row-filter penalty operand against its twin
+    in one mode (fold depth 2, 1 or 0; ``qpack`` on nibble-packed query
+    values), ``density`` of the rows filtered: SCAN_PROFILED_CALLS calls
+    with the penalty, each after an L2 flush, bit-equal to the twin, then
+    as many without it on the same operands; the kernel's device time of
+    each (profile, L2 cold). The twin is timed by CUDA events over the
+    call that gives the reference; the bound adds 4 bytes a probed row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rabitq_tpu_torch.ops import (
+        cuda_rough_scan,
+        pack_query_nibbles,
+        rough_scan_reference,
+    )
+    from rabitq_tpu_torch.ops.scan_kernel import effective_fold
+
+    codes, _, starts, sizes = ops[:4]
+    args = list(ops)
+    if qpack:
+        args[4] = pack_query_nibbles(ops[4])
+    pen = scan_penalty(codes.device, codes.shape[0], density, seed=fold)
+    mode = ("qpack " if qpack else "") + SCAN_MODES[fold]
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    want = rough_scan_reference(*args, span, fold, qpack, pen)
+    ev1.record()
+    torch.cuda.synchronize()
+    twin_ms = ev0.elapsed_time(ev1)
+    cuda_rough_scan(*args, span, fold, qpack, pen)  # warm-up
+    torch.cuda.synchronize()
+    flush, flush_keys = l2_flush()
+
+    def profiled(penalty):
+        outs = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SCAN_PROFILED_CALLS):
+                flush.sum()
+                outs.append(cuda_rough_scan(*args, span, fold, qpack,
+                                            penalty))
+            torch.cuda.synchronize()
+        if penalty is not None:
+            for got in outs:
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(
+                        f"rough_scan kernel with penalty != twin, {label} "
+                        f"{mode} density {density}")
+        return split_scan_profile(prof, SCAN_PROFILED_CALLS, flush_keys)
+
+    tag = f"rough_scan {label} {mode} penalty {density}"
+    kernel_ms, glue_ms = retry_lost_records(lambda: profiled(pen), tag)
+    plain_kernel_ms, _ = retry_lost_records(lambda: profiled(None), tag)
+    inf_share = float(torch.isinf(want).float().mean())
+    del want, flush
+    f = effective_fold(span, fold)
+    bound_ms, bound_by, rows, gb = scan_bound(
+        codes, starts, sizes, span, f * 128 if f else span,
+        args[4].shape[1], penalty=True)
+    log(f"[kernel rough_scan {label} {mode} penalty {100 * density:g}%] "
+        f"S={starts.shape[0]} span={span} D={codes.shape[1]}: "
+        f"{SCAN_PROFILED_CALLS} calls bit-equal to twin (+inf share of the "
+        f"output {inf_share:.4f}); kernel {kernel_ms:.4f} ms with the "
+        f"penalty, {plain_kernel_ms:.4f} ms without it on the same operands "
+        f"({100 * (kernel_ms / plain_kernel_ms - 1):+.1f}%), grouping glue "
+        f"{glue_ms:.4f} ms (profile, L2 cold); twin {twin_ms:.4f} ms (CUDA "
+        f"events, one call); bound {bound_ms:.4f} ms by {bound_by} ({rows} "
+        f"distinct rows, {gb:.4f} GB): kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=twin_ms,
+                kernel_ms=kernel_ms, no_penalty_ms=plain_kernel_ms,
+                glue_ms=glue_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_quantize(dev, smi, label, b, probe, dim, pack):
@@ -1000,28 +1126,8 @@ def run_search(rt, index, qd, truth, params, label, smi):
     then the counters, one batch's peak memory (fused and with the plain
     quantize stage), the scan's bound in one batch and one profiled
     batch. Returns a dict of what it measured, with ids and dists."""
-    nb, batch = qd.shape[0], qd.shape[1]
-    topk = params.topk
-    rt.search(index, qd[0], params)  # warm-up
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    enqueue = []
-
-    def run():
-        ev0.record()
-        t_enq = time.perf_counter()
-        out = rt.search_many(index, qd, params)
-        enqueue.append(time.perf_counter() - t_enq)
-        ev1.record()
-        return out
-
-    (dists, ids), counts = run_captured(run)
-    search_s = time.perf_counter() - t0
-    res = dict(counts=counts, search_s=search_s, qps=nb * batch / search_s,
-               enqueue_ms=1e3 * enqueue[0] / nb,
-               device_ms=ev0.elapsed_time(ev1) / nb)
+    nb, batch, topk = qd.shape[0], qd.shape[1], params.topk
+    res = timed_search_many(rt, index, qd, params)
     rt.METRICS.reset()
     for q in qd:  # counters (untimed)
         rt.metrics.record_search_stats(
@@ -1031,11 +1137,8 @@ def run_search(rt, index, qd, truth, params, label, smi):
     peak_gb = peak_memory_gb()
     res["batch_peak_mb"], res["plain_batch_peak_mb"] = batch_peaks(
         rt, index, qd[1], params)
-    ids = ids.reshape(-1, topk)
-    dists = dists.reshape(-1, topk)
-    hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
-    res.update(ids=ids, dists=dists, recall=float(hits.float().mean() / topk),
-               no_id=int((ids < 0).sum()))
+    ids = res["ids"]
+    res.update(recall=recall_of(ids, truth), no_id=int((ids < 0).sum()))
     scan = scan_in_search(rt, index, qd[1], params)
     scan.update(retry_lost_records(
         lambda: profile_batch(rt, index, qd[1], params, label, smi), label))
@@ -1044,15 +1147,15 @@ def run_search(rt, index, qd, truth, params, label, smi):
     log(f"[{label} search] {nb}x{batch} queries probe={params.probe} "
         f"rerank={params.rerank} topk={topk} select_reduce="
         f"{params.select_reduce} (scan fold {scan['fold']}): "
-        f"{search_s:.4f}s wall, {res['device_ms'] * nb:.3f} ms device (CUDA "
-        f"events, {res['device_ms']:.3f} ms/batch; host enqueue "
+        f"{res['search_s']:.4f}s wall, {res['device_ms'] * nb:.3f} ms device "
+        f"(CUDA events, {res['device_ms']:.3f} ms/batch; host enqueue "
         f"{res['enqueue_ms']:.3f} ms/batch), QPS {res['qps']:.1f}, "
         f"recall@{topk} {res['recall']:.4f}, slots without an id "
         f"{res['no_id']}, peak mem {peak_gb:.3f} GB (one batch: "
         f"{res['batch_peak_mb']:.1f} MB above its start; with the plain "
         f"quantize stage {res['plain_batch_peak_mb']:.1f} MB), "
         f"{rt.METRICS.to_str()}, "
-        f"search_many: {counts}; in one batch: rough_scan stage "
+        f"search_many: {res['counts']}; in one batch: rough_scan stage "
         f"{scan['stage_ms']:.4f} ms = kernel {scan['kernel_ms']:.4f} ms "
         f"+ grouping glue {scan['glue_ms']:.4f} ms (profile) vs bound "
         f"{scan['bound_ms']:.4f} ms by {scan['bound_by']} ({scan['rows']} "
@@ -1305,8 +1408,10 @@ def cli_phase(dev, smi, sift, saved, work, min_recall):
     params = sift["params"]
     t0 = time.perf_counter()
     files = {name: work / f"{name}.fvecs" for name in
-             ("base", "centroids", "query", "query64", "sample")}
-    files.update(truth=work / "truth.ivecs", truth64=work / "truth64.ivecs")
+             ("base", "centroids", "query", "query64", "query2048",
+              "sample")}
+    files.update(truth=work / "truth.ivecs", truth64=work / "truth64.ivecs",
+                 truth2048=work / "truth2048.ivecs")
     queries = qd.reshape(-1, qd.shape[-1]).cpu().numpy()
     truth_np = truth.int().cpu().numpy()
     write_matrix(files["base"], base)
@@ -1315,6 +1420,8 @@ def cli_phase(dev, smi, sift, saved, work, min_recall):
     write_matrix(files["truth"], truth_np)
     write_matrix(files["query64"], queries[:64])
     write_matrix(files["truth64"], truth_np[:64])
+    write_matrix(files["query2048"], queries[:2048])
+    write_matrix(files["truth2048"], truth_np[:2048])
     rng = np.random.default_rng(1)
     write_matrix(files["sample"],
                  base[rng.choice(base.shape[0], TRAIN_CAP, replace=False)])
@@ -1343,7 +1450,11 @@ def cli_phase(dev, smi, sift, saved, work, min_recall):
     for name, argv in (("built", run_args(built)),
                        ("saved", run_args(saved)),
                        ("heap", run_args(saved, "query64", "truth64",
-                                         "--rerank-mode", "heap"))):
+                                         "--rerank-mode", "heap")),
+                       ("autotune", run_args(saved, "query2048", "truth2048",
+                                             "--autotune", "0.95")),
+                       ("adaptive", run_args(saved, "query2048", "truth2048",
+                                             "--adaptive"))):
         (out, seconds), counts = run_captured(lambda: timed(argv))
         runs[name] = dict(out, seconds=seconds, counts=counts)
     if runs["built"]["recall"] < min_recall:
@@ -1362,6 +1473,8 @@ def cli_phase(dev, smi, sift, saved, work, min_recall):
         if not c["quantize"] == c["rough_scan"] == c["gather_l2"] == nb + 1:
             raise AssertionError(f"[cli] run {name}: launches {c} for "
                                  f"{nb} batches and a warm-up")
+    for name in ("autotune", "adaptive"):
+        assert_path_launches(runs[name]["counts"], f"[cli] run --{name}")
     _, train_s = timed(["train", "-i", str(files["sample"]), "-o",
                         str(work / "trained.fvecs"), "-k", str(K),
                         "--iters", "2"])
@@ -1376,6 +1489,541 @@ def cli_phase(dev, smi, sift, saved, work, min_recall):
         + f" (the sift path's recall {sift['on']['recall']:.4f}); train k={K} "
         f"on {TRAIN_CAP} rows, 2 iterations: {train_s:.2f}s [{smi}]")
     return runs
+
+
+# Row filters on the sift index: allowed shares of the ids, each with its
+# recall@10 floor against brute force over the allowed rows, and the JAX
+# package's figure at that share (BASELINE.md:511-519, round 5; taken on a
+# TPU v5e, logged beside the port's and no target here).
+FILTER_FLOORS = {0.5: 0.90, 0.1: 0.84, 0.01: 0.60}
+FILTER_JAX_TPU = {0.5: 0.9422, 0.1: 0.8887, 0.01: 0.6813}
+GIST_FILTER_SHARE = 0.01
+MUTATE_COUNTS = dict(delete=10_000, insert=10_000, update=1_000, probe=256)
+ADAPTIVE_START, ADAPTIVE_MAX_PROBE, CERTIFY_QUERIES = 8, 256, 256
+# A corpus whose clusters the annulus certificate can tell apart.
+SEPARATED = dict(n=200_000, k=1024, spread=0.6)
+AUTOTUNE_SAMPLE, AUTOTUNE_TARGET = 2048, 0.95
+
+
+def brute_topk(xb, ids, flat_q, topk, chunk=512):
+    """Exact top-k ids of every query over the rows ``xb`` (their ids
+    ``ids``), on the card."""
+    from rabitq_tpu_torch.ops import pairwise_l2sq
+
+    return torch.cat([
+        ids[torch.topk(pairwise_l2sq(flat_q[a : a + chunk], xb), topk,
+                       largest=False).indices]
+        for a in range(0, flat_q.shape[0], chunk)
+    ])
+
+
+def recall_of(ids, truth):
+    topk = truth.shape[1]
+    hits = (ids[:, :, None] == truth[:, None, :]).any(-1).sum(1)
+    return float(hits.float().mean() / topk)
+
+
+def assert_exact_distances(vec_of, flat_q, ids, dists, label):
+    """Every finite returned distance is its id's exact squared distance
+    (``vec_of[id]``, the id's live vector); -1 exactly at +inf."""
+    fin = torch.isfinite(dists)
+    if not torch.equal(fin, ids >= 0):
+        raise AssertionError(f"{label}: ids -1 not matching +inf distances")
+    for a in range(0, ids.shape[0], 256):
+        i, d = ids[a : a + 256], dists[a : a + 256]
+        diff = vec_of[i.clamp(min=0)] - flat_q[a : a + 256, None, :]
+        exact = (diff * diff).sum(-1)
+        f = torch.isfinite(d)
+        if not f.any():
+            continue
+        atol = 1e-5 * float(exact[f].abs().max())
+        if not torch.allclose(exact[f], d[f], rtol=1e-5, atol=atol):
+            raise AssertionError(
+                f"{label}: returned distances are not the ids' distances")
+
+
+def timed_search_many(rt, index, qd, params, row_filter=None):
+    """search_many of the query set (after a warm-up batch) with the launch
+    counts (from 0 just before it), wall seconds and QPS (host clock to
+    the synchronize), device ms a batch (CUDA events) and host enqueue ms
+    a batch; ids and dists [nq, topk]."""
+    nb = qd.shape[0]
+    rt.search(index, qd[0], params, row_filter)  # warm-up
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    enqueue = []
+
+    def run():
+        ev0.record()
+        t = time.perf_counter()
+        out = rt.search_many(index, qd, params, row_filter)
+        enqueue.append(time.perf_counter() - t)
+        ev1.record()
+        return out
+
+    t0 = time.perf_counter()
+    (dists, ids), counts = run_captured(run)
+    search_s = time.perf_counter() - t0
+    topk = params.topk
+    return dict(dists=dists.reshape(-1, topk), ids=ids.reshape(-1, topk),
+                counts=counts, search_s=search_s,
+                qps=nb * qd.shape[1] / search_s,
+                device_ms=ev0.elapsed_time(ev1) / nb,
+                enqueue_ms=1e3 * enqueue[0] / nb)
+
+
+def assert_path_launches(counts, label, penalty=False, qpack=None):
+    """The search kernels each launched once a scan call in the run."""
+    calls = counts["rough_scan calls"]
+    want = {"quantize": calls, "rough_scan": calls, "gather_l2": calls}
+    if penalty:
+        want["rough_scan penalty"] = calls
+    if qpack is not None:
+        want["rough_scan qpack"] = calls if qpack else 0
+    if not calls or any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {counts}")
+
+
+def filter_phase(rt, dev, smi, label, path, shares, floors, xb):
+    """Filtered search_many of ``path``'s queries for allowlists of each
+    share of the ids (drawn from a seeded numpy generator): every returned
+    id allowed, every distance its id's exact one, recall@topk against
+    brute force over the allowed rows on the card (at least ``floors``
+    where given), the scan launched unfolded with the penalty. Returns
+    the runs by share, each with its filter and allowed ids."""
+    index, qd, flat_q, params = (path[k] for k in ("index", "qd", "flat_q",
+                                                   "params"))
+    n = xb.shape[0]
+    rng = np.random.default_rng(3)
+    runs = {}
+    for share in shares:
+        allow = np.sort(rng.choice(n, int(share * n), replace=False))
+        t0 = time.perf_counter()
+        rf = rt.make_row_filter(index, allow_ids=allow)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        allow_t = torch.from_numpy(allow).to(dev)
+        t0 = time.perf_counter()
+        truth = brute_topk(xb[allow_t], allow_t, flat_q, params.topk)
+        torch.cuda.synchronize()
+        truth_s = time.perf_counter() - t0
+        r = timed_search_many(rt, index, qd, params, rf)
+        ids, dists = r["ids"], r["dists"]
+        assert_path_launches(r["counts"], f"{label} filter {share}",
+                             penalty=True, qpack=index.dim % 256 == 0)
+        live = ids[ids >= 0]
+        if not torch.isin(live, allow_t).all():
+            raise AssertionError(f"{label} filter {share}: a returned id is "
+                                 f"not allowed")
+        assert_exact_distances(xb, flat_q, ids, dists,
+                               f"{label} filter {share}")
+        r.update(recall=recall_of(ids, truth), filter=rf, allow=allow,
+                 no_id=int((ids < 0).sum()), build_s=build_s,
+                 truth_s=truth_s)
+        floor = floors.get(share)
+        if floor is not None and r["recall"] < floor:
+            raise AssertionError(f"{label} filter {share}: recall@"
+                                 f"{params.topk} {r['recall']:.4f} < {floor}")
+        jax_tpu = FILTER_JAX_TPU.get(share) if label == "sift" else None
+        log(f"[{label} filter] allowlist {100 * share:g}% ({allow.size} ids, "
+            f"make_row_filter {build_s:.3f}s, allowed truth {truth_s:.2f}s): "
+            f"probe {params.probe} rerank {params.rerank}: recall@"
+            f"{params.topk} {r['recall']:.4f} against the allowed rows"
+            + (f" (floor {floor}; the JAX package on a TPU v5e, BASELINE.md "
+               f"round 5: {jax_tpu}, no target)" if floor else "")
+            + f", slots without an id {r['no_id']}; every id allowed, every "
+            f"distance exact; device {r['device_ms']:.3f} ms/batch (CUDA "
+            f"events), host enqueue {r['enqueue_ms']:.3f} ms/batch; "
+            f"launches {r['counts']} [{smi}]")
+        runs[share] = r
+    return runs
+
+
+def sift_filter_phase(rt, dev, smi, sift):
+    """The sift filters (filter_phase at 50%, 10% and 1%), a profiled
+    filtered batch beside the unfiltered fold-off one, a deny-mode and a
+    RowFilterContext build of the 10% filter against the direct one, and
+    one filtered batch under sync debug mode "error"."""
+    from rabitq_tpu_torch.index.filter import RowFilterContext
+
+    t_phase = time.perf_counter()
+    index, qd, params = sift["index"], sift["qd"], sift["params"]
+    xb = torch.from_numpy(sift["base"]).to(dev)
+    runs = filter_phase(rt, dev, smi, "sift", sift, tuple(FILTER_FLOORS),
+                        FILTER_FLOORS, xb)
+    del xb
+    off = sift["off"]
+    for share, r in runs.items():
+        prof = retry_lost_records(
+            lambda: profile_batch(rt, index, qd[1], params,
+                                  f"sift filter {share}", smi, r["filter"]),
+            f"sift filter {share}")
+        r["busy_ms"], r["kernel_ms"] = prof["busy_ms"], prof["kernel_ms"]
+    log("[sift filter] one profiled batch, filtered 50% / 10% / 1% | the "
+        "unfiltered fold-off run's: device busy ms "
+        + " / ".join(f"{r['busy_ms']:.3f}" for r in runs.values())
+        + f" | {off['scan']['busy_ms']:.3f} ("
+        + " / ".join(
+            f"{100 * (r['busy_ms'] / off['scan']['busy_ms'] - 1):+.1f}%"
+            for r in runs.values())
+        + "); scan kernel ms "
+        + " / ".join(f"{r['kernel_ms']:.4f}" for r in runs.values())
+        + f" | {off['scan']['kernel_ms']:.4f}; device ms/batch (CUDA events) "
+        + " / ".join(f"{r['device_ms']:.3f}" for r in runs.values())
+        + f" | {off['device_ms']:.3f}; host enqueue ms/batch "
+        + " / ".join(f"{r['enqueue_ms']:.3f}" for r in runs.values())
+        + f" | {off['enqueue_ms']:.3f} [{smi}]")
+
+    ten = runs[0.1]
+    deny = np.setdiff1d(np.arange(sift["base"].shape[0]), ten["allow"])
+    t0 = time.perf_counter()
+    ctx = RowFilterContext(index)
+    ctx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_ctx = rt.make_row_filter(index, allow_ids=ten["allow"], ctx=ctx)
+    torch.cuda.synchronize()
+    ctx_build_s = time.perf_counter() - t0
+    by_deny = rt.make_row_filter(index, deny_ids=deny)
+    for name, rf in (("deny", by_deny), ("context", by_ctx)):
+        if not torch.equal(rf.penalty, ten["filter"].penalty):
+            raise AssertionError(f"[sift filter] {name} build's penalty "
+                                 f"differs from the direct allow build's")
+        _, ids = rt.search_many(index, qd, params, rf)
+        if not torch.equal(ids.reshape(ten["ids"].shape), ten["ids"]):
+            raise AssertionError(f"[sift filter] {name} build's ids differ")
+    check_no_host_sync(rt, index, qd[1], params, "sift filter 10%",
+                       ten["filter"])
+    log(f"[sift filter] 10%: a deny-mode build ({deny.size} ids) and a "
+        f"RowFilterContext build (context {ctx_s:.3f}s, then "
+        f"{ctx_build_s:.4f}s against the direct build's "
+        f"{ten['build_s']:.3f}s) give the direct build's penalty and ids; "
+        f"phase {time.perf_counter() - t_phase:.1f}s [{smi}]")
+    for r in runs.values():
+        del r["ids"], r["dists"], r["filter"]
+    return runs
+
+
+def gist_filter_phase(rt, dev, smi, gist):
+    """A 1% allowlist on the gist index at the checked probe, 4 batches:
+    every id allowed, every distance exact, the scan in qpack mode with the
+    penalty; recall@100 against the allowed rows is logged (no floor)."""
+    t0 = time.perf_counter()
+    xb = torch.from_numpy(gist["base"]).to(dev)
+    runs = filter_phase(rt, dev, smi, "gist", gist, (GIST_FILTER_SHARE,),
+                        {}, xb)
+    del xb
+    r = runs[GIST_FILTER_SHARE]
+    log(f"[gist filter] phase {time.perf_counter() - t0:.1f}s")
+    return {k: r[k] for k in ("recall", "device_ms", "enqueue_ms", "counts")}
+
+
+def mutate_phase(rt, dev, smi, sift, work):
+    """Deletes, inserts and updates on the sift index, then a filtered
+    search, a dump and load, and a compaction; see the module docstring
+    ([sift mutate])."""
+    from rabitq_tpu_torch.index.mutate import reconstruct_corpus
+    from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
+
+    t_phase = time.perf_counter()
+    index, qd, flat_q, params = (sift[k] for k in ("index", "qd", "flat_q",
+                                                   "params"))
+    base = sift["base"]
+    n, dim = base.shape
+    c = MUTATE_COUNTS
+    rng = np.random.default_rng(4)
+    victims = rng.choice(n, c["delete"], replace=False)
+    t0 = time.perf_counter()
+    deleted = rt.delete(index, victims)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    r = timed_search_many(rt, deleted, qd, params)
+    assert_path_launches(r["counts"], "sift mutate delete")
+    victims_t = torch.from_numpy(victims).to(dev)
+    if torch.isin(r["ids"], victims_t).any():
+        raise AssertionError("[sift mutate] a deleted id came back")
+
+    fresh = (base[rng.choice(n, c["insert"], replace=False)]
+             + 0.1 * rng.standard_normal((c["insert"], dim))
+             ).astype(np.float32)
+    t0 = time.perf_counter()
+    inserted = rt.insert(deleted, fresh)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    q_new = torch.from_numpy(fresh[: c["probe"]]).to(dev)
+    d_new, i_new = rt.search(inserted, q_new, params)
+    want_new = torch.arange(n, n + c["probe"], device=dev)
+    scale = (q_new * q_new).sum(1)
+    if not (torch.equal(i_new[:, 0], want_new)
+            and (d_new[:, 0] <= 1e-5 * scale).all()):
+        raise AssertionError("[sift mutate] inserted rows do not return "
+                             "their ids at distance 0")
+    ins_d_max = float((d_new[:, 0] / scale).max())
+
+    live_ids = np.setdiff1d(np.arange(n), victims)
+    upd = rng.choice(live_ids, c["update"], replace=False)
+    new_vecs = (base[rng.choice(n, c["update"], replace=False)]
+                + 0.1 * rng.standard_normal((c["update"], dim))
+                ).astype(np.float32)
+    t0 = time.perf_counter()
+    mutated = rt.update(inserted, new_vecs, upd)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    upd_t = torch.from_numpy(upd).to(dev)
+    q_upd = torch.from_numpy(new_vecs[: c["probe"]]).to(dev)
+    d_u, i_u = rt.search(mutated, q_upd, params)
+    scale = (q_upd * q_upd).sum(1)
+    if not (torch.equal(i_u[:, 0], upd_t[: c["probe"]])
+            and (d_u[:, 0] <= 1e-5 * scale).all()):
+        raise AssertionError("[sift mutate] updated ids do not answer at "
+                             "their new vectors")
+    upd_d_max = float((d_u[:, 0] / scale).max())
+    _, i_old = rt.search(mutated, torch.from_numpy(
+        base[upd[: c["probe"]]]).to(dev), params)
+    if (i_old == upd_t[: c["probe"], None]).any():
+        raise AssertionError("[sift mutate] an updated id answers at its "
+                             "old vector")
+
+    # The live corpus, its truth, and each id's live vector.
+    vecs, ids = reconstruct_corpus(mutated)
+    vecs_t = torch.from_numpy(vecs).to(dev)
+    ids_t = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    vec_of = torch.zeros((n + c["insert"], dim), device=dev)
+    vec_of[ids_t] = vecs_t
+    truth = brute_topk(vecs_t, ids_t, flat_q, params.topk)
+    r = timed_search_many(rt, mutated, qd, params)
+    assert_path_launches(r["counts"], "sift mutate")
+    assert_exact_distances(vec_of, flat_q, r["ids"], r["dists"],
+                           "sift mutate")
+    recall = recall_of(r["ids"], truth)
+    deny = rng.choice(ids, ids.shape[0] // 10, replace=False)
+    rf = rt.make_row_filter(mutated, deny_ids=deny)
+    keep = ~torch.isin(ids_t, torch.from_numpy(deny).to(dev))
+    f_truth = brute_topk(vecs_t[keep], ids_t[keep], flat_q, params.topk)
+    rf_run = timed_search_many(rt, mutated, qd, params, rf)
+    assert_path_launches(rf_run["counts"], "sift mutate filter", penalty=True)
+    assert_exact_distances(vec_of, flat_q, rf_run["ids"], rf_run["dists"],
+                           "sift mutate filter")
+    if torch.isin(rf_run["ids"], torch.from_numpy(deny).to(dev)).any():
+        raise AssertionError("[sift mutate] a denied id came back")
+    f_recall = recall_of(rf_run["ids"], f_truth)
+    if min(recall, f_recall) < MIN_RECALL:
+        raise AssertionError(f"[sift mutate] recall@{params.topk} "
+                             f"{recall:.4f}, filtered {f_recall:.4f} < "
+                             f"{MIN_RECALL}")
+    check_no_host_sync(rt, mutated, qd[1], params, "sift mutate filter", rf)
+    del f_truth, rf_run
+
+    saved = work / "mutated"
+    t0 = time.perf_counter()
+    dump_to_dir(mutated, saved)
+    loaded = load_from_dir(saved, device=dev)
+    torch.cuda.synchronize()
+    io_s = time.perf_counter() - t0
+    dl, il = rt.search_many(loaded, qd, params)
+    if not (torch.equal(il.reshape(r["ids"].shape), r["ids"])
+            and torch.equal(dl.reshape(r["dists"].shape), r["dists"])):
+        raise AssertionError("[sift mutate] the reloaded mutated index "
+                             "searches differently")
+    del loaded
+    shutil.rmtree(saved)
+
+    t0 = time.perf_counter()
+    compacted, live = rt.compact(
+        mutated, generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    got_ids = compacted.map_ids.cpu().numpy()
+    if not (live.shape == ids.shape
+            and np.array_equal(np.unique(got_ids), np.unique(ids))
+            and np.array_equal(np.sort(live), np.sort(ids))):
+        raise AssertionError("[sift mutate] compact lost or gained ids")
+    rc = timed_search_many(rt, compacted, qd, params)
+    assert_path_launches(rc["counts"], "sift compacted")
+    c_recall = recall_of(rc["ids"], truth)
+    if c_recall < MIN_RECALL:
+        raise AssertionError(f"[sift mutate] compacted recall "
+                             f"{c_recall:.4f} < {MIN_RECALL}")
+    # The memtable's share of a batch: the mutated index's device time
+    # against the same index without its memtable rows.
+    no_mem = dataclasses.replace(mutated, extra_base=None, extra_ids=None)
+    r_nomem = timed_search_many(rt, no_mem, qd, params)
+    busy = {}
+    for name, idx in (("memtable", mutated), ("no memtable", no_mem)):
+        busy[name] = retry_lost_records(
+            lambda: profile_batch(rt, idx, qd[1], params,
+                                  f"sift mutate {name}", smi),
+            f"sift mutate {name}")["busy_ms"]
+    log(f"[sift mutate] delete {c['delete']} ids {delete_s:.3f}s: none comes "
+        f"back; insert {c['insert']} rows {insert_s:.3f}s: {c['probe']} "
+        f"queries at inserted rows return their ids first (distance <= "
+        f"{ins_d_max:.2e} x |q|^2); update {c['update']} ids "
+        f"{update_s:.3f}s: new vectors answer with their ids (<= "
+        f"{upd_d_max:.2e} x |q|^2), old ones no longer; live corpus "
+        f"{ids.shape[0]} rows: recall@{params.topk} {recall:.4f}, with a "
+        f"deny filter of {deny.size} ids {f_recall:.4f} (floor {MIN_RECALL}); "
+        f"every distance exact; device {r['device_ms']:.3f} ms/batch with the "
+        f"{mutated.m}-row memtable, {r_nomem['device_ms']:.3f} without it "
+        f"(CUDA events; host enqueue {r['enqueue_ms']:.3f} and "
+        f"{r_nomem['enqueue_ms']:.3f} ms/batch), device busy in one "
+        f"profiled batch {busy['memtable']:.3f} and "
+        f"{busy['no memtable']:.3f} ms; dump + "
+        f"load {io_s:.2f}s: same ids and distances; compact {compact_s:.2f}s "
+        f"(n {compacted.n}, capacity {compacted.capacity}): live ids kept, "
+        f"recall@{params.topk} {c_recall:.4f}; launches {r['counts']}; "
+        f"phase {time.perf_counter() - t_phase:.1f}s [{smi}]")
+    return dict(recall=recall, filtered_recall=f_recall,
+                compacted_recall=c_recall, compact_s=compact_s,
+                device_ms=r["device_ms"], no_memtable_ms=r_nomem["device_ms"],
+                busy_ms=busy, counts=r["counts"])
+
+
+def certificate_violations(rt, index, q, params):
+    """_search_with_certificate on ``q`` at ``params``: (certified share,
+    rows of the index closer than a certified query's k-th result, by
+    brute force, that lie outside its probed clusters). A row counts as
+    closer below kth - 1e-5 (|q|^2 + kth), the rounding of the two
+    distance computations."""
+    from rabitq_tpu_torch.ops import pairwise_l2sq, rotate
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    dists, _, safe = tsearch._search_with_certificate(index, q, params)
+    y = rotate(tsearch._prep_queries(index, q), index.orthogonal)
+    cids = tsearch._rank_clusters(index, tsearch._rank_cdist(index, y),
+                                  params.probe, params)
+    probed = torch.zeros((q.shape[0], index.k), dtype=torch.bool,
+                         device=q.device).scatter_(1, cids, True)
+    row_cluster = torch.searchsorted(
+        index.offsets.long(), torch.arange(index.n, device=q.device),
+        right=True) - 1
+    live = index.map_ids >= 0
+    kth = dists[:, -1]
+    bad = 0
+    for a in range(0, q.shape[0], 32):
+        qa, ka = q[a : a + 32], kth[a : a + 32]
+        closer = pairwise_l2sq(qa, index.base) < (
+            ka - 1e-5 * ((qa * qa).sum(1) + ka))[:, None]
+        outside = ~probed[a : a + 32][:, row_cluster]
+        bad += int((closer & outside & live[None, :]
+                    & safe[a : a + 32, None]).sum())
+    return float(safe.float().mean()), bad
+
+
+def separated_certificate(rt, dev, smi):
+    """The certificate where it certifies: a corpus of well-separated
+    clusters (SEPARATED: n rows about k standard-normal centers in 128-d,
+    at ``spread``), queries near its rows; search_adaptive from probe 1,
+    and the certificate against brute force at three probes."""
+    t0 = time.perf_counter()
+    n, k, spread = SEPARATED["n"], SEPARATED["k"], SEPARATED["spread"]
+    rng = np.random.default_rng(6)
+    centers = rng.standard_normal((k, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, k, n)]
+            + spread * rng.standard_normal((n, 128))).astype(np.float32)
+    index = rt.build_index(base, centers, bits=4, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    q = torch.from_numpy(base[:CERTIFY_QUERIES] + 0.01 * rng.standard_normal(
+        (CERTIFY_QUERIES, 128)).astype(np.float32)).to(dev)
+    params = rt.SearchParams(probe=1, topk=10, rerank=32)
+    _, _, used = rt.search_adaptive(index, q, params,
+                                    max_probe=ADAPTIVE_MAX_PROBE)
+    shares = {}
+    for probe in (1, 4, used):
+        share, bad = certificate_violations(rt, index, q,
+                                            params._replace(probe=probe))
+        if bad:
+            raise AssertionError(f"[adaptive separated] certificate at probe "
+                                 f"{probe}: {bad} closer rows outside the "
+                                 f"probed clusters")
+        shares[probe] = share
+    log(f"[adaptive separated] {n} x 128 rows about {k} centers (spread "
+        f"{spread}), {CERTIFY_QUERIES} queries near rows: search_adaptive "
+        f"from probe 1 used probe {used}; certificate sound against brute "
+        f"force, certified share "
+        + ", ".join(f"at probe {p}: {v:.4f}" for p, v in shares.items())
+        + f"; {time.perf_counter() - t0:.1f}s [{smi}]")
+    if not any(shares.values()):
+        raise AssertionError("[adaptive separated] nothing certified")
+    return shares
+
+
+def adaptive_phase(rt, dev, smi, sift):
+    """search_adaptive from probe ADAPTIVE_START to ADAPTIVE_MAX_PROBE over
+    the sift queries, with the centroid and the annulus ranking (probe
+    used, recall, ms a batch), and the certificate against brute force on
+    CERTIFY_QUERIES queries at two probes."""
+    t_phase = time.perf_counter()
+    index, qd, flat_q, params, truth = (sift[k] for k in (
+        "index", "qd", "flat_q", "params", "truth"))
+    out = {}
+    for rank in ("centroid", "annulus"):
+        p = params._replace(probe=ADAPTIVE_START, probe_rank=rank)
+        rt.search_adaptive(index, qd[0], p, max_probe=ADAPTIVE_MAX_PROBE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, counts = run_captured(lambda: [
+            rt.search_adaptive(index, q, p, max_probe=ADAPTIVE_MAX_PROBE)
+            for q in qd])
+        assert_path_launches(counts, f"sift adaptive {rank}")
+        out[rank] = dict(
+            probe_used=[pu for _, _, pu in res],
+            recall=recall_of(torch.cat([i for _, i, _ in res]), truth),
+            ms=1e3 * (time.perf_counter() - t0) / qd.shape[0], counts=counts)
+    a, b = out["centroid"], out["annulus"]
+    # Queries of the set, and base rows (near which a query certifies
+    # early).
+    on_rows = torch.from_numpy(sift["base"][:CERTIFY_QUERIES]).to(dev)
+    certified = {}
+    for name, q in (("queries", flat_q[:CERTIFY_QUERIES]),
+                    ("base rows", on_rows)):
+        for probe in (ADAPTIVE_START, max(a["probe_used"])):
+            share, bad = certificate_violations(
+                rt, index, q, params._replace(probe=probe))
+            if bad:
+                raise AssertionError(f"[sift adaptive] certificate of the "
+                                     f"{name} at probe {probe}: {bad} closer "
+                                     f"rows outside the probed clusters")
+            certified[f"{name} at probe {probe}"] = share
+    a["certified"] = certified
+    log(f"[sift adaptive] search_adaptive from probe {ADAPTIVE_START}, "
+        f"max_probe {ADAPTIVE_MAX_PROBE}, rerank {params.rerank}, "
+        f"{qd.shape[0]} batches of {qd.shape[1]}: probe used "
+        f"{a['probe_used']}, recall@{params.topk} {a['recall']:.4f}, "
+        f"{a['ms']:.3f} ms a batch (host clock, one certificate read a "
+        f"level); certificate sound against brute force on "
+        f"{CERTIFY_QUERIES} queries and {CERTIFY_QUERIES} base rows "
+        f"(certified share "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in certified.items())
+        + f"); probe_rank annulus: probe used {b['probe_used']}, recall "
+        f"{b['recall']:.4f}, {b['ms']:.3f} ms a batch; launches "
+        f"{a['counts']}; phase {time.perf_counter() - t_phase:.1f}s [{smi}]")
+    return out
+
+
+def autotune_phase(rt, dev, smi, sift):
+    """autotune on AUTOTUNE_SAMPLE of the sift queries at
+    AUTOTUNE_TARGET: the curve, the pick and the seconds."""
+    index, flat_q = sift["index"], sift["flat_q"]
+    sample = flat_q[:AUTOTUNE_SAMPLE]
+    t0 = time.perf_counter()
+    (params, curve), counts = run_captured(
+        lambda: rt.autotune(index, sample, AUTOTUNE_TARGET,
+                            topk=sift["params"].topk))
+    seconds = time.perf_counter() - t0
+    assert_path_launches(counts, "sift autotune")
+    if curve[-1].recall < AUTOTUNE_TARGET:
+        raise AssertionError(f"[sift autotune] no rung reached "
+                             f"{AUTOTUNE_TARGET}: {curve}")
+    log(f"[sift autotune] {AUTOTUNE_SAMPLE} sample queries, target "
+        f"recall@{sift['params'].topk} {AUTOTUNE_TARGET}: curve "
+        + ", ".join(f"probe {c.probe} rerank {c.rerank}: {c.recall:.4f}"
+                    for c in curve)
+        + f"; pick probe {params.probe} rerank {params.rerank}; "
+        f"{seconds:.2f}s (exact ground truth and one search a rung); "
+        f"launches {counts} [{smi}]")
+    return dict(probe=params.probe, rerank=params.rerank,
+                curve=[tuple(c) for c in curve], seconds=seconds,
+                counts=counts)
 
 
 def main() -> int:
@@ -1407,7 +2055,8 @@ def main() -> int:
     # on packed query values (mode "qpack <mode>").
     quants = {"sift": check_quantize(dev, smi, "sift", 2048, 28, 128, False),
               "gist": check_quantize(dev, smi, "gist", 1024, 80, 1024, True)}
-    scans = {}
+    scans, penalties = {}, {}
+    t_kernels = time.perf_counter()
     for path, dim, b, probe, span, twin_iters in (
         ("sift", 128, 2048, 28, 384, 3), ("gist", 1024, 1024, 80, 384, 1),
     ):
@@ -1422,7 +2071,14 @@ def main() -> int:
                     scans[f"{path} {operands}", mode] = check_rough_scan(
                         smi, f"{path} {operands}", ops, span, twin_iters,
                         fold, edges=operands == "random", qpack=qpack)
+                    if operands != "clusters":
+                        continue
+                    for density in PENALTY_DENSITIES:
+                        penalties[path, mode, density] = check_scan_penalty(
+                            smi, f"{path} {operands}", ops, span, fold,
+                            qpack, density)
             del ops
+    log(f"[kernel] scan checks {time.perf_counter() - t_kernels:.1f}s")
     gather_gist = check_gather_l2(dev, smi, 1_200_000, 1024, 1024, 150)
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
     gather_sift_cl = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32,
@@ -1439,11 +2095,26 @@ def main() -> int:
     sift_cpu_agreement(rt, sift["index"], sift["params"], sift["flat_q"],
                        sift_on["ids"], sift_on["dists"], SIFT["topk"])
 
-    # 6-7. The sift index saved and loaded; the CLI on the sift data.
+    # 6-8. Filters, adaptive search and autotune on the sift index.
+    path_counts = {}
+    sift_filter = sift_filter_phase(rt, dev, smi, sift)
+    path_counts["sift filter"] = {
+        key: sum(r["counts"][key] for r in sift_filter.values())
+        for key in sift_on["counts"]}
+    adaptive = adaptive_phase(rt, dev, smi, sift)
+    path_counts["sift adaptive"] = adaptive["centroid"]["counts"]
+    separated_certificate(rt, dev, smi)
+    tuned = autotune_phase(rt, dev, smi, sift)
+    path_counts["sift autotune"] = tuned["counts"]
+
+    # 9-11. The sift index saved and loaded; the CLI on the sift data;
+    # mutations.
     work = Path(tempfile.mkdtemp(prefix="rabitq_smoke_"))
     try:
         saved = saved_phase(rt, dev, smi, sift, work)
         cli_runs = cli_phase(dev, smi, sift, saved, work, MIN_RECALL)
+        mutate = mutate_phase(rt, dev, smi, sift, work)
+        path_counts["sift mutate"] = mutate["counts"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del sift, sift_on["ids"], sift_on["dists"]
@@ -1451,10 +2122,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 8. The gist path.
+    # 12. The gist path, and a filter on it.
     gist = search_path(rt, dev, smi, "gist", GIST, GIST_PROBES,
                        GIST_CHECK_PROBE, MIN_RECALL)
     gist_on, gist_off = gist["on"], gist["off"]
+    gist_filter = gist_filter_phase(rt, dev, smi, gist)
+    path_counts["gist filter"] = gist_filter["counts"]
     del gist
     gist_label = f"gist probe {GIST_CHECK_PROBE}"
 
@@ -1462,7 +2135,9 @@ def main() -> int:
         """The main path's launches: the checked probes' default runs."""
         sift, gist = sift_on["counts"][name], gist_on["counts"][name]
         return {"launches": sift + gist,
-                "launches_by_path": {"sift": sift, "gist": gist},
+                "launches_by_path": {
+                    "sift": sift, "gist": gist,
+                    **{p: c[name] for p, c in path_counts.items()}},
                 "launches_fold_off": sift_off["counts"][name]
                 + gist_off["counts"][name]}
 
@@ -1482,19 +2157,28 @@ def main() -> int:
         modes.setdefault(mode, {})[ops] = {
             key: r[key] for key in ("ms", "kernel_ms", "glue_ms", "plain_ms",
                                     "bound_ms")}
+    penalty_modes = {}
+    for (path, mode, density), r in penalties.items():
+        penalty_modes.setdefault(f"{mode} penalty {density}", {})[
+            f"{path} clusters"] = {
+            key: r[key] for key in ("ms", "no_penalty_ms", "glue_ms",
+                                    "plain_ms", "bound_ms", "bound_by")}
     log(json.dumps({"kernels": [
         {"name": "rough_scan", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/rough_scan.cu",
          "replaces": "rabitq_tpu/ops/scan_kernel.py:621",
          **launches("rough_scan"),
          "launches_qpack": launches("rough_scan qpack"),
-         "max_abs_err": max(r["max_abs_err"] for r in scans.values()),
+         "launches_penalty": launches("rough_scan penalty"),
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            (*scans.values(), *penalties.values())),
          **{key: main_mode[key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None,
          "operands": "sift clusters, fold 2 (search's default mode); ms = "
                      "device time with the L2 cold",
          "modes": modes,
+         "penalty_modes": penalty_modes,
          "in_search": {label: in_search(run) for label, run in search_runs}},
         {"name": "quantize_residuals", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/quantize.cu",

@@ -17,14 +17,22 @@ torch.backends.cudnn.allow_tf32 = False
 from rabitq_tpu_torch import consts  # noqa: E402
 from rabitq_tpu_torch.index import (  # noqa: E402
     RaBitQIndex,
+    RowFilter,
     SearchParams,
     build_index,
+    compact,
+    delete,
     estimate_candidates,
     index_from_arrays,
+    insert,
+    make_row_filter,
     search,
+    search_adaptive,
     search_many,
     search_with_stats,
+    update,
 )
+from rabitq_tpu_torch.autotune import autotune, exact_topk  # noqa: E402
 from rabitq_tpu_torch.kmeans import kmeans  # noqa: E402
 from rabitq_tpu_torch.metrics import METRICS  # noqa: E402
 from rabitq_tpu_torch.utils import calculate_recall  # noqa: E402
@@ -40,7 +48,16 @@ __all__ = [
     "search",
     "search_many",
     "search_with_stats",
+    "search_adaptive",
     "estimate_candidates",
+    "RowFilter",
+    "make_row_filter",
+    "insert",
+    "update",
+    "delete",
+    "compact",
+    "autotune",
+    "exact_topk",
     "kmeans",
     "METRICS",
     "calculate_recall",

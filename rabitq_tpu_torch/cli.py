@@ -4,6 +4,7 @@
     python -m rabitq_tpu_torch.cli build -b base.fvecs -c centroids.fvecs -s index_dir
     python -m rabitq_tpu_torch.cli run -b base.fvecs -c centroids.fvecs -s index_dir \\
         -q query.fvecs -t truth.ivecs -p 28 --rerank 32 -k 10 --batch 2048
+    python -m rabitq_tpu_torch.cli run ... --autotune 0.95   (or --adaptive)
 
 ``run`` loads the index directory (or builds it from -b/-c and saves it
 there) and evaluates recall and QPS over the queries; ``build`` builds and
@@ -26,7 +27,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_ADAPTIVE = "adaptive search and autotune are not ported (ROADMAP queue 1 item 5)"
 _EXACT = (
     "not ported: the JAX package's approximate selection and bf16 rerank "
     "are on ROADMAP's do-not-port list (the port's selection and rerank are "
@@ -120,10 +120,27 @@ def _host_rerank(index, queries, truth, params, args):
     return total_time, recall
 
 
+def _autotuned(index, queries, params, args):
+    """--autotune: (probe, rerank) picked on the first 512 queries against
+    exact ground truth, every other knob kept from the flags."""
+    from rabitq_tpu_torch.autotune import autotune
+
+    log = logging.getLogger("rabitq_tpu_torch.cli")
+    tuned, curve = autotune(index, queries[:512], target_recall=args.autotune,
+                            topk=args.topk, base_params=params)
+    log.info("autotune(target=%.3f): probe=%d rerank=%d (curve: %s)",
+             args.autotune, tuned.probe, tuned.rerank,
+             ", ".join(f"p{c.probe}={c.recall:.4f}" for c in curve))
+    return tuned
+
+
 def cmd_run(args) -> dict:
     """Evaluate; returns {"qps", "recall"} (also logged)."""
     from rabitq_tpu_torch.index.index import SearchParams
-    from rabitq_tpu_torch.index.search import search_with_stats
+    from rabitq_tpu_torch.index.search import (
+        search_adaptive,
+        search_with_stats,
+    )
     from rabitq_tpu_torch.io import read_matrix
     from rabitq_tpu_torch.metrics import METRICS, record_search_stats
     from rabitq_tpu_torch.profiling import TIMER, device_trace
@@ -137,6 +154,11 @@ def cmd_run(args) -> dict:
     params = SearchParams(probe=args.probe, topk=args.topk, rerank=args.rerank)
     if args.no_fold:
         params = params._replace(select_reduce=False)
+    if args.probe_rank:
+        params = params._replace(probe_rank=args.probe_rank)
+    if args.autotune is not None:
+        with TIMER.phase("autotune"):
+            params = _autotuned(index, queries, params, args)
     nq = queries.shape[0]
 
     if args.rerank_mode in ("heap", "heuristic"):
@@ -147,22 +169,30 @@ def cmd_run(args) -> dict:
         qdev = torch.from_numpy(np.pad(queries, ((0, pad), (0, 0)))).to(
             args.device
         )
+        def run_batch(qb):
+            """(ids, stats); adaptive search keeps no stats, and reads its
+            certificate on the host once a level."""
+            if args.adaptive:
+                return search_adaptive(index, qb, params)[1], None
+            return search_with_stats(index, qb, params)[1:]
+
         with TIMER.phase("warmup"):
-            search_with_stats(index, qdev[:batch], params)
+            run_batch(qdev[:batch])
         trace = device_trace(args.trace) if args.trace else contextlib.nullcontext()
         # Batches are enqueued back to back; results come to the host once,
         # after the loop's synchronize.
         start = time.perf_counter()
         with trace, TIMER.phase("search"):
-            outs = [search_with_stats(index, qdev[s : s + batch], params)
+            outs = [run_batch(qdev[s : s + batch])
                     for s in range(0, nq + pad, batch)]
         total_time = time.perf_counter() - start
         with TIMER.phase("recall"):
-            all_ids = torch.cat([ids for _, ids, _ in outs]).cpu().numpy()
-            for bi, (_, _, stats) in enumerate(outs):
+            all_ids = torch.cat([ids for ids, _ in outs]).cpu().numpy()
+            for bi, (_, stats) in enumerate(outs):
                 valid = min(batch, nq - bi * batch)
                 METRICS.add_query_count(valid)
-                record_search_stats(stats, valid)
+                if stats is not None:
+                    record_search_stats(stats, valid)
             recall = sum(calculate_recall(truth[i], all_ids[i], args.topk)
                          for i in range(nq))
 
@@ -268,11 +298,27 @@ def main(argv=None):
         "on the card",
     )
     p_run.add_argument(
+        "--adaptive",
+        action="store_true",
+        help="early-stop search: double probe until the result is "
+        "geometrically certified (probe flag = starting probe)",
+    )
+    p_run.add_argument(
         "--probe-rank",
         choices=["centroid", "annulus"],
         default=None,
-        help="cluster probe ranking: centroid distance (the port's only "
-        "one; annulus is " + _ADAPTIVE + ")",
+        help="cluster probe ranking: centroid distance (default) or the "
+        "annulus lower bound (better on skewed corpora with split "
+        "oversized clusters)",
+    )
+    p_run.add_argument(
+        "--autotune",
+        type=float,
+        default=None,
+        metavar="RECALL",
+        help="pick probe+rerank automatically for this target recall@topk "
+        "on a query sample against exact ground truth (overrides -p and "
+        "--rerank; other knobs are kept)",
     )
     p_run.add_argument(
         "--profile",
@@ -286,8 +332,6 @@ def main(argv=None):
         help="write a torch.profiler Chrome trace of the query loop into DIR",
     )
     refused = {
-        "--adaptive": ("store_true", None, _ADAPTIVE),
-        "--autotune": (None, float, _ADAPTIVE),
         "--select-passes": (None, int, _EXACT),
         "--rerank-bf16": ("store_true", None, _EXACT),
         "--rerank-refine": (None, int, _EXACT),
@@ -329,8 +373,6 @@ def main(argv=None):
         for flag, (_, _, why) in refused.items():
             if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
                 ap.error(f"{flag}: {why}")
-        if args.probe_rank == "annulus":
-            ap.error(f"--probe-rank annulus: {_ADAPTIVE}")
     return args.fn(args)
 
 

@@ -19,6 +19,17 @@
 // cannot contract it to FMAs and the kernel equals the twin bit for bit.
 // The dot is exact in int32 (|dot| <= 127 * 15 * D < 2^24 for D <= 8192).
 //
+// The row-filter penalty (optional, any depth): penalty [N] f32 holds 0 for
+// an allowed row and +inf for a filtered one, in the dense row order of
+// codes (rabitq_tpu_torch/index/filter.py). When the pointer is set, out =
+// estimate + penalty[row], added after the estimate and before the store
+// or the fold's slot packing, so a filtered row is +inf unfolded and, its
+// packed value a NaN or +inf, never enters a fold bucket. A row tile's
+// penalties ride the cp.async ring with its factors (4 bytes a row), so a
+// group's tasks read them from shared memory. The JAX search adds the same
+// penalty as a [S, span] window after its kernel
+// (rabitq_tpu/index/search.py:502-518).
+//
 // The lane fold (template depth kFold = 1 or 2, chosen by the wrapper's
 // effective_fold): out is [S, kFold * 128] instead of [S, span]. Column
 // r < 128 holds the smallest slot-packed value of bucket {j < size :
@@ -61,7 +72,7 @@
 //     dims 4c..4c+3, (w >> 4) & 0x0F0F0F0F the same dims + D/2);
 //   - streams the window rows [start, start + size) through a kStages-deep
 //     cp.async ring, kRows rows x kChunk code bytes a stage, the factors
-//     riding with a row tile's last chunk;
+//     (and the penalties, when given) riding with a row tile's last chunk;
 //   - multiplies on the int8 tensor cores: mma.sync m16n8k32 s8 x s8 ->
 //     s32 with ldmatrix fragments. A is the queries (two m16 tiles), B the
 //     code rows: a stored [rows, D] row is the column-major k32 x n8
@@ -93,7 +104,8 @@ constexpr int kRows = 128;     // window rows per tile: 16 per warp
 constexpr int kChunk = 128;    // code bytes (K) per pipeline stage
 constexpr int kLdb = kChunk + 16;
 constexpr int kStages = 3;
-constexpr int kStageBytes = kRows * kLdb + kRows * 16;  // codes + factors
+// Codes, factors and penalties of a stage.
+constexpr int kStageBytes = kRows * kLdb + kRows * 16 + kRows * 4;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -103,6 +115,13 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared (through L1); bytes == 0 zero-fills.
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes));
 }
 
@@ -140,6 +159,7 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
                   const int32_t* __restrict__ sizes,
                   const int8_t* __restrict__ qvals,
                   const float4* __restrict__ scal,
+                  const float* __restrict__ penalty,
                   const int64_t* __restrict__ order,
                   const int32_t* __restrict__ group_first,
                   int32_t* __restrict__ next_group,
@@ -232,6 +252,10 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
           const float4* src = ok ? factors + start + row0 + tid : factors;
           cp_async16(smem_u32(buf + kRows * kLdb + tid * 16), src,
                      ok ? 16 : 0);
+          if (penalty != nullptr)
+            cp_async4(smem_u32(buf + kRows * (kLdb + 16) + tid * 4),
+                      ok ? penalty + start + row0 + tid : penalty,
+                      ok ? 4 : 0);
         }
       }
       cp_async_commit();
@@ -314,6 +338,8 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
         // window row warp*16 + nt*8 + (lane%4)*2 + e of this tile.
         const float4* fac =
             reinterpret_cast<const float4*>(buf + kRows * kLdb);
+        const float* pen =
+            reinterpret_cast<const float*>(buf + kRows * (kLdb + 16));
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -337,6 +363,7 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
                 v = __fadd_rn(
                     v, __fmul_rn(__fmul_rn(__int2float_rn(dot), f.x), sc.y));
                 v = __fsub_rn(v, __fmul_rn(f.z, sq));
+                if (penalty != nullptr) v = __fadd_rn(v, pen[r]);
                 if constexpr (kFold == 0) {
                   out_t[j] = v;
                 } else {
@@ -397,8 +424,9 @@ rough_scan_kernel(const int8_t* __restrict__ codes,
 template <int kFold>
 int launch_scan(const void* codes, const void* factors, const void* starts,
                 const void* sizes, const void* qvals, const void* scal,
-                const void* order, const void* group_first, void* next_group,
-                void* out, int n_tasks, int dim, int span, int qpack,
+                const void* penalty, const void* order,
+                const void* group_first, void* next_group, void* out,
+                int n_tasks, int dim, int span, int qpack,
                 cudaStream_t stream) {
   const int smem = kQpc * (dim + 16) + kStages * kStageBytes;
   int device = 0;
@@ -439,7 +467,7 @@ int launch_scan(const void* codes, const void* factors, const void* starts,
       static_cast<const int8_t*>(codes), static_cast<const float4*>(factors),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sizes),
       static_cast<const int8_t*>(qvals), static_cast<const float4*>(scal),
-      static_cast<const int64_t*>(order),
+      static_cast<const float*>(penalty), static_cast<const int64_t*>(order),
       static_cast<const int32_t*>(group_first),
       static_cast<int32_t*>(next_group), static_cast<float*>(out), n_tasks,
       dim, span, qpack);
@@ -459,32 +487,34 @@ extern "C" int rabitq_rough_scan_qpc() { return kQpc; }
 // group_first is S past the last group. next_group is one int32 set to 0.
 // fold is the effective depth: 0 writes out [S, span], 1 or 2 the folded
 // [S, fold * 128] (the wrapper applies effective_fold, so span > fold *
-// 128). qpack != 0: qvals are nibble-packed [S, dim / 2]. Preconditions,
-// checked by the Python wrapper: every pointer is 16-byte aligned, dim % 32
-// == 0 (dim % 256 == 0 with qpack), and starts[t] + min(sizes[t], span) <=
-// N for every task.
+// 128). qpack != 0: qvals are nibble-packed [S, dim / 2]. penalty is the
+// row filter's [N] f32 (0 or +inf) added to every estimate, or null.
+// Preconditions, checked by the Python wrapper: every pointer is 16-byte
+// aligned, dim % 32 == 0 (dim % 256 == 0 with qpack), and starts[t] +
+// min(sizes[t], span) <= N for every task.
 extern "C" int rabitq_rough_scan(const void* codes, const void* factors,
                                  const void* starts, const void* sizes,
                                  const void* qvals, const void* scal,
-                                 const void* order, const void* group_first,
-                                 void* next_group, void* out, int n_tasks,
+                                 const void* penalty, const void* order,
+                                 const void* group_first, void* next_group,
+                                 void* out, int n_tasks,
                                  int dim, int span, int fold, int qpack,
                                  void* stream) {
   if (n_tasks <= 0) return 0;
   auto* st = static_cast<cudaStream_t>(stream);
   switch (fold) {
     case 0:
-      return launch_scan<0>(codes, factors, starts, sizes, qvals, scal, order,
-                            group_first, next_group, out, n_tasks, dim, span,
-                            qpack, st);
+      return launch_scan<0>(codes, factors, starts, sizes, qvals, scal,
+                            penalty, order, group_first, next_group, out,
+                            n_tasks, dim, span, qpack, st);
     case 1:
-      return launch_scan<1>(codes, factors, starts, sizes, qvals, scal, order,
-                            group_first, next_group, out, n_tasks, dim, span,
-                            qpack, st);
+      return launch_scan<1>(codes, factors, starts, sizes, qvals, scal,
+                            penalty, order, group_first, next_group, out,
+                            n_tasks, dim, span, qpack, st);
     case 2:
-      return launch_scan<2>(codes, factors, starts, sizes, qvals, scal, order,
-                            group_first, next_group, out, n_tasks, dim, span,
-                            qpack, st);
+      return launch_scan<2>(codes, factors, starts, sizes, qvals, scal,
+                            penalty, order, group_first, next_group, out,
+                            n_tasks, dim, span, qpack, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,8 @@ def index_from_arrays(
     metric: str,
     code_bits: int,
     dedup_ids: bool,
+    extra_base: np.ndarray | None = None,
+    extra_ids: np.ndarray | None = None,
     device: torch.device | str | None = None,
 ) -> RaBitQIndex:
     """The JAX index's arrays (numpy, e.g. ``np.asarray(jidx.codes_pm1)``)
@@ -34,7 +36,9 @@ def index_from_arrays(
     ``codes_pm1`` [n_tiles, 128, D] int8 and ``factors_tiled``
     [n_tiles, 8, 128] f32 are lane-tiled in the aligned padded column
     order; dense row p lives at column ``dense_to_padded(offsets, p)``.
-    Every other field is carried across unchanged.
+    Every other field is carried across unchanged, a mutated index's
+    tombstones (cdsq +inf, map_ids -1) and insert memtable (``extra_base``
+    [M, D], ``extra_ids`` [M]; an empty one becomes None) included.
     """
     device = resolve_device(device)
     offsets = np.asarray(offsets, dtype=np.int32)
@@ -48,6 +52,9 @@ def index_from_arrays(
 
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    if extra_base is not None and np.asarray(extra_base).shape[0] == 0:
+        extra_base = extra_ids = None
 
     return RaBitQIndex(
         codes=t(codes, torch.int8),
@@ -64,4 +71,6 @@ def index_from_arrays(
         metric=metric,
         code_bits=int(code_bits),
         dedup_ids=bool(dedup_ids),
+        extra_base=None if extra_base is None else t(extra_base, torch.float32),
+        extra_ids=None if extra_base is None else t(extra_ids, torch.int32),
     )

@@ -14,6 +14,13 @@ centroid.
                 build spilled rows into a second cluster).
 - ``centroids_rot`` [K, D] f32, ``orthogonal`` [D, D] f32, ``rand_bias``
                 [D] f32 — rotated centroids, rotation, query dither.
+- ``extra_base`` [M, D] f32 or None, ``extra_ids`` [M] int32 or None — the
+                insert memtable (index/mutate.py): rows added after the
+                build, searched exactly beside the quantized rows.
+
+Tombstones (index/mutate.py ``delete``) keep the JAX encoding: the row's
+cdsq factor (column 3 of ``factors``) is +inf, so it estimates to +inf, and
+its ``map_ids`` entry is -1; a deleted memtable row has ``extra_ids`` -1.
 
 Metadata: padded dim, original dim, capacity (largest cluster rounded up
 to 128; the scan span), metric ("l2" or "cosine"), code_bits and dedup_ids.
@@ -48,6 +55,8 @@ class RaBitQIndex:
     metric: str = "l2"
     code_bits: int = 1
     dedup_ids: bool = False
+    extra_base: Optional[torch.Tensor] = None
+    extra_ids: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -56,6 +65,11 @@ class RaBitQIndex:
     @property
     def k(self) -> int:
         return self.offsets.shape[0] - 1
+
+    @property
+    def m(self) -> int:
+        """Memtable rows (tombstoned ones included)."""
+        return 0 if self.extra_base is None else self.extra_base.shape[0]
 
 
 def padded_offsets(offsets: np.ndarray) -> np.ndarray:
@@ -97,6 +111,17 @@ class SearchParams(NamedTuple):
             candidates; False gives the full scan output, which is what
             the JAX package's CPU path selects from.
     fold_depth: estimates kept per bucket, 1 or 2 (clamped).
+    probe_lo: first probed-cluster rank to scan: the scan covers the
+            clusters ranked [probe_lo, probe). 0 is a normal search;
+            search_adaptive sets it on escalation so that each level
+            scans only the newly probed clusters.
+    probe_rank: the probe ranking key. "centroid": squared distance to
+            the centroid. "annulus": the exact lower bound on any
+            member's squared distance, the squared distance from d(q, c)
+            to the cluster's member-radius band [r_lo, r_hi] (rows are
+            sorted by centroid distance, so the first and last rows'
+            cdsq bound it). It separates the tied segments of a split
+            cluster and ranks empty clusters last.
 
     The selection is always the JAX ``select_mode="exact"`` two-stage
     top-R, over the folded or the full scan output.
@@ -122,3 +147,5 @@ class SearchParams(NamedTuple):
     dither: bool = False
     select_reduce: bool = True
     fold_depth: int = 2
+    probe_lo: int = 0
+    probe_rank: str = "centroid"

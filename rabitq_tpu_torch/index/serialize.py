@@ -16,6 +16,8 @@ dumped by either package loads in the other:
    - ``meta.json``            rand_bias, dim_orig, capacity, metric,
                               code_bits, dedup_ids (written by both
                               packages, not by the Rust reference)
+   - ``extra_base.fvecs``     the insert memtable's M rows (padded), and
+     ``extra_ids.ivecs``      1 record of its M ids; only when M > 0
 
    The file stores each row's code as plane-major uint32 words: W = dim/32
    words a plane, ``code_bits`` planes, plane p holding bit p of the code
@@ -34,10 +36,10 @@ dumped by either package loads in the other:
 
 3. **npz** (``dump_to_npz``): one file, everything preserved.
 
-The JAX package's insert memtable (``extra_base.fvecs`` and
-``extra_ids.ivecs``, npz/JSON keys ``extra_base``/``extra_ids``) is not
-ported (ROADMAP queue 1 item 4, mutations): a dump that holds one is
-refused, not loaded without its rows.
+A mutated index round-trips: its tombstones ride in ``factors`` (cdsq
++inf) and ``map_ids`` (-1, stored as uint32 0xFFFFFFFF as the JAX package
+stores it), its memtable in the files above or the npz/JSON keys
+``extra_base``/``extra_ids``.
 """
 
 from __future__ import annotations
@@ -63,10 +65,6 @@ from rabitq_tpu_torch.utils import resolve_device, round_up
 _META = "meta.json"
 # Rows converted at a time: bounds the int64 bit tensors of the packing.
 _CONVERT_ELEMS = 1 << 24
-_MEMTABLE = (
-    "holds an insert memtable ({}); the port does not load memtables yet "
-    "(ROADMAP queue 1 item 4, mutations)"
-)
 
 
 def codes_to_words(codes: torch.Tensor, code_bits: int) -> torch.Tensor:
@@ -143,6 +141,9 @@ def dump_to_dir(
         path / "x_binary_vec.u64vecs",
         [np.ascontiguousarray(words).reshape(-1).view(np.uint64)],
     )
+    if index.m:
+        write_matrix(path / "extra_base.fvecs", _np(index.extra_base))
+        write_vecs(path / "extra_ids.ivecs", [_np(index.extra_ids)])
     (path / _META).write_text(json.dumps(dict(
         format=1,
         dim=index.dim,
@@ -157,9 +158,10 @@ def dump_to_dir(
 
 def _index(device, *, codes_words, factors, offsets, map_ids, centroids_rot,
            orthogonal, rand_bias, base, dim, dim_orig, capacity, metric,
-           code_bits, dedup_ids) -> RaBitQIndex:
+           code_bits, dedup_ids, extra_base=None,
+           extra_ids=None) -> RaBitQIndex:
     """The port's index on ``device`` from host arrays, the codes as the
-    file's [N, W * bits] uint32 words."""
+    file's [N, W * bits] uint32 words; an empty memtable becomes None."""
 
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
@@ -183,6 +185,10 @@ def _index(device, *, codes_words, factors, offsets, map_ids, centroids_rot,
         metric=metric,
         code_bits=int(code_bits),
         dedup_ids=bool(dedup_ids),
+        extra_base=(None if extra_base is None or len(extra_base) == 0
+                    else t(extra_base, torch.float32)),
+        extra_ids=(None if extra_base is None or len(extra_base) == 0
+                   else t(extra_ids, torch.int32)),
     )
 
 
@@ -203,8 +209,6 @@ def load_from_dir(
     """
     path = Path(path)
     device = resolve_device(device, generator)
-    if (path / "extra_base.fvecs").exists():
-        raise ValueError(f"{path} " + _MEMTABLE.format("extra_base.fvecs"))
     orthogonal = read_matrix(path / "orthogonal.fvecs")
     dim = orthogonal.shape[0]
     if dim % 64:
@@ -243,13 +247,17 @@ def load_from_dir(
     base = read_matrix(path / "base.fvecs") if keep_base else None
     if base is not None and base.shape != (n, dim):
         raise ValueError(f"base {base.shape}, expected {(n, dim)}")
+    extra_base = extra_ids = None
+    if (path / "extra_base.fvecs").exists():
+        extra_base = read_matrix(path / "extra_base.fvecs")
+        extra_ids = read_vecs(path / "extra_ids.ivecs", np.int32)[0]
     return _index(
         device, codes_words=words.view(np.uint32).reshape(n, w32),
         factors=factors, offsets=offsets, map_ids=map_ids,
         centroids_rot=centroids_rot, orthogonal=orthogonal,
         rand_bias=rand_bias, base=base, dim=dim, dim_orig=dim_orig,
         capacity=capacity, metric=metric, code_bits=code_bits,
-        dedup_ids=dedup_ids,
+        dedup_ids=dedup_ids, extra_base=extra_base, extra_ids=extra_ids,
     )
 
 
@@ -274,6 +282,9 @@ def dump_to_json(index: RaBitQIndex, path: str | Path) -> None:
         code_bits=index.code_bits,
         dedup_ids=index.dedup_ids,
     )
+    if index.m:
+        payload["extra_base"] = _np(index.extra_base).tolist()
+        payload["extra_ids"] = _np(index.extra_ids).tolist()
     Path(path).write_text(json.dumps(payload))
 
 
@@ -283,8 +294,6 @@ def load_from_json(
     """Load a JSON dump onto ``device`` (default CUDA)."""
     device = resolve_device(device)
     z = json.loads(Path(path).read_text())
-    if "extra_base" in z:
-        raise ValueError(f"{path} " + _MEMTABLE.format("extra_base"))
     return _index(
         device, codes_words=np.asarray(z["codes"], np.uint32),
         factors=np.asarray(z["factors"], np.float32),
@@ -297,6 +306,10 @@ def load_from_json(
         dim=z["dim"], dim_orig=z["dim_orig"], capacity=z["capacity"],
         metric=z.get("metric", "l2"), code_bits=z.get("code_bits", 1),
         dedup_ids=z.get("dedup_ids", False),
+        extra_base=(np.asarray(z["extra_base"], np.float32)
+                    if "extra_base" in z else None),
+        extra_ids=(np.asarray(z["extra_ids"], np.int32)
+                   if "extra_ids" in z else None),
     )
 
 
@@ -316,6 +329,9 @@ def dump_to_npz(index: RaBitQIndex, path: str | Path) -> None:
     )
     if index.base is not None:
         arrays["base"] = _np(index.base)
+    if index.m:
+        arrays["extra_base"] = _np(index.extra_base)
+        arrays["extra_ids"] = _np(index.extra_ids)
     np.savez(path, **arrays)
 
 
@@ -328,8 +344,6 @@ def load_from_npz(
     """Load an npz dump onto ``device`` (default CUDA)."""
     device = resolve_device(device)
     with np.load(path) as z:
-        if "extra_base" in z:
-            raise ValueError(f"{path} " + _MEMTABLE.format("extra_base"))
         meta = [int(v) for v in z["meta"]]
         return _index(
             device, codes_words=z["codes"], factors=z["factors"],
@@ -341,4 +355,6 @@ def load_from_npz(
             code_bits=meta[3] if len(meta) > 3 else 1,
             dedup_ids=bool(meta[4]) if len(meta) > 4 else False,
             metric=str(z["metric"]) if "metric" in z else "l2",
+            extra_base=z["extra_base"] if "extra_base" in z else None,
+            extra_ids=z["extra_ids"] if "extra_ids" in z else None,
         )

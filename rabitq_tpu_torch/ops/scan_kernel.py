@@ -21,6 +21,11 @@ replaced by j, so it carries its own slot and orders as the estimate
 does, up to that quantization. A bucket with fewer valid slots than f
 holds +inf, never packed.
 
+With ``penalty`` ([N] f32, the row filter of index/filter.py: 0 for an
+allowed row, +inf for a filtered one) each estimate of row r becomes
+``rough[t, j] + penalty[r]``, added before the fold packs and selects, so a
+filtered row is +inf unfolded and never enters a fold bucket.
+
 With ``qpack`` the query values come nibble-packed, [S, D/2] int8 in the
 JAX split-half layout (byte i = dim i | dim i + D/2 << 4, as
 ops/quantize.py:pack_query_nibbles writes them), and D must be a multiple
@@ -58,7 +63,7 @@ QPC = 32
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point, with its ctypes signature: ten
+    """The built kernel's C entry point, with its ctypes signature: eleven
     pointers, n_tasks, dim, span, fold, qpack, and the stream (pointers
     and the stream as c_void_p so ctypes does not cut them to 32 bits). Raises
     unless the kernel was built for groups of ``QPC`` tasks."""
@@ -69,7 +74,7 @@ def _kernel():
             f"tasks a group, grouping cuts at {QPC}"
         )
     fn = lib.rabitq_rough_scan
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -131,7 +136,8 @@ def group_tasks(
     return order, group_first
 
 
-def _check(codes, factors, starts, sizes, qvals, scal, span, qpack):
+def _check(codes, factors, starts, sizes, qvals, scal, span, qpack,
+           penalty=None):
     n, d = codes.shape
     s = starts.shape[0]
     if qpack and d % 256:
@@ -144,6 +150,8 @@ def _check(codes, factors, starts, sizes, qvals, scal, span, qpack):
         "qvals": (qvals, torch.int8, (s, d // 2 if qpack else d)),
         "scal": (scal, torch.float32, (s, 4)),
     }
+    if penalty is not None:
+        expect["penalty"] = (penalty, torch.float32, (n,))
     for name, (t, dtype, shape) in expect.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
@@ -166,6 +174,7 @@ def rough_scan_reference(
     span: int,
     fold: int = 0,
     qpack: bool = False,
+    penalty: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: same contract, any device.
 
@@ -173,9 +182,10 @@ def rough_scan_reference(
     sum is an integer below 2^24 (|dot| <= 127 * 15 * D) and TF32 is off.
     Tasks run in chunks that bound the [chunk, span, D] gathered window;
     with a fold each chunk's estimates are packed and folded in turn. With
-    ``qpack`` the query values are unpacked first.
+    ``qpack`` the query values are unpacked first. The penalty is added to
+    the estimates before the fold or the +inf mask, as in the kernel.
     """
-    _check(codes, factors, starts, sizes, qvals, scal, span, qpack)
+    _check(codes, factors, starts, sizes, qvals, scal, span, qpack, penalty)
     if qpack:
         qvals = unpack_query_nibbles(qvals)
     n, d = codes.shape
@@ -199,6 +209,8 @@ def rough_scan_reference(
         est = est + lo * fac[..., 1]
         est = est + (dot * fac[..., 0]) * delta
         est = est - fac[..., 2] * torch.sqrt(ycd)
+        if penalty is not None:
+            est = est + penalty[pos]
         if f:
             out[a:b] = _lane_fold(est, valid, span, f)
         else:
@@ -242,6 +254,7 @@ def cuda_rough_scan(
     span: int,
     fold: int = 0,
     qpack: bool = False,
+    penalty: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Rough scan: [S, span] f32, or [S, f * 128] slot-packed bucket minima
     when ``f = effective_fold(span, fold)`` > 0. CUDA tensors launch the
@@ -249,17 +262,20 @@ def cuda_rough_scan(
     ``starts[t] + min(sizes[t], span) <= N`` for every task. On the card
     D must be a multiple of 32 (the index pads it to a multiple of 128).
     ``qpack``: qvals are nibble-packed [S, D/2] (module docstring).
+    ``penalty``: the row filter's [N] f32 added to every estimate, or None.
 
     ``cuda_rough_scan.launches`` counts kernel launches (not twin calls),
-    ``cuda_rough_scan.launches_qpack`` those of them with ``qpack``.
+    ``cuda_rough_scan.launches_qpack`` those of them with ``qpack``,
+    ``cuda_rough_scan.launches_penalty`` those with a penalty.
     """
     if codes.device.type == "cpu":
         return rough_scan_reference(
-            codes, factors, starts, sizes, qvals, scal, span, fold, qpack
+            codes, factors, starts, sizes, qvals, scal, span, fold, qpack,
+            penalty,
         )
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    _check(codes, factors, starts, sizes, qvals, scal, span, qpack)
+    _check(codes, factors, starts, sizes, qvals, scal, span, qpack, penalty)
     n, d = codes.shape
     s = starts.shape[0]
     if torch.cuda.get_device_capability(codes.device) != (9, 0):
@@ -267,7 +283,7 @@ def cuda_rough_scan(
     if d % 32:
         raise ValueError(f"dim must be a multiple of 32, got {d}")
     args = (codes, factors, starts, sizes, qvals, scal)
-    for t in args:
+    for t in args if penalty is None else (*args, penalty):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")
     f = effective_fold(span, fold)
@@ -282,7 +298,9 @@ def cuda_rough_scan(
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            *(t.data_ptr() for t in (*args, order, group_first, next_group)),
+            *(t.data_ptr() for t in args),
+            None if penalty is None else penalty.data_ptr(),
+            *(t.data_ptr() for t in (order, group_first, next_group)),
             out.data_ptr(),
             s,
             d,
@@ -295,8 +313,10 @@ def cuda_rough_scan(
         raise RuntimeError(f"rough_scan kernel launch failed: CUDA error {err}")
     cuda_rough_scan.launches += 1
     cuda_rough_scan.launches_qpack += int(qpack)
+    cuda_rough_scan.launches_penalty += int(penalty is not None)
     return out
 
 
 cuda_rough_scan.launches = 0
 cuda_rough_scan.launches_qpack = 0
+cuda_rough_scan.launches_penalty = 0

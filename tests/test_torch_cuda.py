@@ -12,7 +12,8 @@ and the int8 tensor-core dot is exact), on random operands and on
 cluster-structured ones whose tasks share windows, in each of its modes
 (the full output and the lane fold at depth 1 and 2), also on the
 nibble-packed query operand (qpack), where it must equal the unpacked
-kernel on the same values; and so must the int4 kernels (integer
+kernel on the same values, and with the row-filter penalty operand in
+every mode; and so must the int4 kernels (integer
 arithmetic). The fused quantize kernel equals its twin bit for bit in the
 quantized values (packed or not), lo, delta and code_sum, and its ycd =
 sum r^2, summed in another order, within rtol 1e-6. The gather-l2 kernel
@@ -36,6 +37,7 @@ from chip_smoke import (
     gather_operands,
     quantize_operands,
     scan_operands,
+    scan_penalty,
 )
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
@@ -657,3 +659,78 @@ def test_search_at_1024d_runs_quantize_and_qpack_once(dev, tmp_path):
     loaded = load_from_dir(tmp_path, device=dev)
     d2, i2 = rt.search(loaded, queries.to(dev), params)
     assert torch.equal(i2, i_gpu) and torch.equal(d2, d_gpu)
+
+
+@pytest.mark.parametrize("density", [0.01, 0.5])
+@pytest.mark.parametrize("fold", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["random", "clusters"])
+@pytest.mark.parametrize("d,qpack", [(128, False), (1024, False),
+                                     (1024, True)])
+def test_penalty_kernel_equals_twin(dev, d, qpack, kind, fold, density):
+    """The row-filter penalty operand ([N] f32, +inf on a ``density``
+    share of the rows), in every mode, bit for bit; a penalized row is
+    +inf unfolded and never in a fold bucket."""
+    if kind == "random":
+        ops = list(scan_operands(dev, 5000, 300, 384, d, seed=d + fold))
+    else:
+        ops = list(cluster_scan_operands(dev, 300, 128, 16, 384, d,
+                                         seed=d + fold))
+    pen = scan_penalty(dev, ops[0].shape[0], density, seed=fold)
+    if qpack:
+        ops[4] = pack_query_nibbles(ops[4])
+    before = cuda_rough_scan.launches
+    got = cuda_rough_scan(*ops, 384, fold, qpack, pen)
+    want = rough_scan_reference(*ops, 384, fold, qpack, pen)
+    plain = cuda_rough_scan(*ops, 384, fold, qpack)
+    torch.cuda.synchronize()
+    assert cuda_rough_scan.launches == before + 2
+    assert _same_bits(got, want)
+    assert not _same_bits(got, plain)
+    assert torch.isinf(got).sum() > torch.isinf(plain).sum()
+
+
+def test_filtered_mutated_adaptive_search_on_card(dev):
+    """A filtered search of a mutated index (tombstones and a memtable)
+    and an adaptive one, on the card: each scan call launches the
+    quantize, scan and gather_l2 kernels once, and the results equal the
+    CPU path's but at near-ties."""
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((16, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 6000)]
+            + 0.3 * rng.standard_normal((6000, 128))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    fresh = rng.standard_normal((50, 128)).astype(np.float32)
+    idx = rt.delete(rt.insert(idx, fresh), np.arange(0, 6000, 7))
+    rf = rt.make_row_filter(idx, allow_ids=np.arange(0, 6050, 2))
+    cpu_idx = dataclasses.replace(idx, **{
+        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
+        if isinstance(getattr(idx, f.name), torch.Tensor)
+    })
+    cpu_rf = rt.RowFilter(rf.penalty.cpu(), rf.extra_penalty.cpu())
+    queries = torch.from_numpy(np.concatenate([base[:24], fresh[:8]]) + 0.01)
+    params = rt.SearchParams(probe=6, topk=10, rerank=64)
+    counters = (cuda_quantize_residuals, cuda_rough_scan, cuda_gather_l2)
+    before = [c.launches for c in counters]
+    d_gpu, i_gpu = rt.search(idx, queries.to(dev), params, rf)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    d_cpu, i_cpu = rt.search(cpu_idx, queries, params, cpu_rf)
+    ids = i_gpu.cpu()
+    assert not torch.isin(ids, torch.arange(1, 6050, 2)).any()
+    assert not torch.isin(ids, torch.arange(0, 6000, 7)).any()
+    same = ids == i_cpu
+    assert same.float().mean() >= 0.98
+    # The memtable's distances come from |q|^2 - 2<q, x> + |x|^2 (as in the
+    # JAX package): the two devices round its terms apart, by a few ulp of
+    # |q|^2 + |x|^2, whatever the distance.
+    atol = 1e-5 * float((queries * queries).sum(1).max())
+    torch.testing.assert_close(d_gpu.cpu()[same], d_cpu[same], rtol=1e-5,
+                               atol=atol)
+    d_a, i_a, p_a = rt.search_adaptive(idx, queries.to(dev), params._replace(
+        probe=2))
+    d_c, i_c, p_c = rt.search_adaptive(cpu_idx, queries, params._replace(
+        probe=2))
+    assert p_a == p_c
+    same = i_a.cpu() == i_c
+    assert same.float().mean() >= 0.98

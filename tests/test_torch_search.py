@@ -237,8 +237,8 @@ def _fold_of(monkeypatch, idx, queries, params):
     seen = []
     stage = tsearch.rough_scan
 
-    def spy(index, q, p, fold=0):
-        out = stage(index, q, p, fold)
+    def spy(index, q, p, fold=0, **kw):
+        out = stage(index, q, p, fold, **kw)
         seen.append((fold, out.rough.shape[1]))
         return out
 

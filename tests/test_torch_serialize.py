@@ -9,8 +9,9 @@
 - A directory without meta.json (the Rust reference's): capacity equal to
   JAX's, a non-dither search equal to JAX's; its dither comes from the
   ``generator=`` the port requires.
-- A memtable directory is refused; ``keep_base=False`` then a search
-  raises.
+- A memtable directory and npz load with their memtable (before the
+  port had mutations they were refused; the test keeps its name);
+  ``keep_base=False`` then a search raises.
 
 Cases at 128-d and at 960-d (padded to 1024, where the scan's qpack mode
 is on).
@@ -180,12 +181,15 @@ def test_memtable_refused_and_baseless_search_raises(tmp_path):
     base, queries = make_dataset(1500, 64, 32, 4, seed=6)
     centers = _centers(np.random.default_rng(6), base, 8)
     jidx = rq.build_index(base, centers, key=jax.random.key(0))
-    jser.dump_to_dir(rq.insert(jidx, base[:5] + 0.5), tmp_path / "mem")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 4"):
-        tser.load_from_dir(tmp_path / "mem", device="cpu")
-    jser.dump_to_npz(rq.insert(jidx, base[:5] + 0.5), tmp_path / "mem.npz")
-    with pytest.raises(ValueError, match="memtable"):
-        tser.load_from_npz(tmp_path / "mem.npz", device="cpu")
+    mem = rq.insert(jidx, base[:5] + 0.5)
+    jser.dump_to_dir(mem, tmp_path / "mem")
+    jser.dump_to_npz(mem, tmp_path / "mem.npz")
+    for got in (tser.load_from_dir(tmp_path / "mem", device="cpu"),
+                tser.load_from_npz(tmp_path / "mem.npz", device="cpu")):
+        np.testing.assert_array_equal(got.extra_base.numpy(),
+                                      np.asarray(mem.extra_base))
+        np.testing.assert_array_equal(got.extra_ids.numpy(),
+                                      np.asarray(mem.extra_ids))
 
     jser.dump_to_dir(jidx, tmp_path / "plain")
     idx = tser.load_from_dir(tmp_path / "plain", keep_base=False,
