@@ -75,7 +75,45 @@ then non-zero and no result line is printed):
      directory and loaded back onto the card with load_from_dir;
      search_many of the 16,384 queries must return the in-memory index's
      ids and distances exactly (dump and load seconds logged);
-  10. [cli]   python -m rabitq_tpu_torch.cli, in-process (main(argv)), on
+  10. [sift store <kind>] the saved directory loaded base-less onto the
+     card (load_from_dir(keep_base=False)) and searched with
+     search_with_store over the 16,384 queries in batches of 2048 at the
+     sift path's params, the exact distances from each store: device (the
+     in-memory index's base), mmap, blockcache (a FileBlockSource: two
+     batches at the default max_cached_blocks, which is below the file's
+     blocks, so every batch misses on every block; then a cache of the
+     whole file with SQLite under the work directory, a cold and a warm
+     pass) and http (an HttpRangeSource against a Range-honouring
+     http.server on 127.0.0.1 in a thread of this script, a cache of the
+     whole file, cold). Each pass: ids equal to the in-memory index's
+     fold-on run but at near-ties (every distance within rtol 1e-5),
+     recall@10 within 0.0005 of it, one launch of quantize and rough_scan
+     a batch and none of gather_l2; QPS, and a batch's span between CUDA
+     events around the estimate, its host ms to get_rows (the estimate's
+     enqueue and the one copy of the candidates), in get_rows and after
+     it (exact distances, merge, top-k); misses, blocks and bytes read
+     and the cache backend, which must be "native"; the host syncs of one
+     batch under sync debug mode "warn"; one batch profiled (but on the
+     cold pass): the device ms of the estimate's kernels, the call's
+     device busy ms and the card's idle share of it. One batch's positions go through the
+     block cache's get_rows and the JAX package's mask loop, timed, the
+     rows equal;
+  11. [sift service] BatchingEngine (max_batch 64, window 2 ms) and
+     make_handler on a ServiceHTTPServer at 127.0.0.1:0 in a thread: the
+     device-resident sift index as the default engine, a block-cache
+     engine named "store" over the saved base. Through the port's client
+     helpers: 2,048 queries as /query_bin_batch frames of 512 rows, 512
+     single /query JSON requests and 256 /query_bin requests from 16
+     threads, at probe 28 and top_k 10 (the engine's rerank 48): ids equal
+     to search() at those params but at near-ties, recall@10 >= 0.93, one
+     launch of each search kernel a device call, /metrics counting every
+     query; 128 /query_bin requests to the store engine (cache misses
+     above 0, no gather_l2); a 10% allowlist registered by POST /filters
+     (every id returned allowed); /admin/reload of the saved directory
+     while 8 threads keep querying (no request fails) and 409 from the
+     store engine. QPS and p50/p99 latency per protocol, rows a device
+     call;
+  12. [cli]   python -m rabitq_tpu_torch.cli, in-process (main(argv)), on
      the sift data written as fvecs/ivecs: build (bits 4, spill 0.2), run
      (probe 28, rerank 32, topk 10, batch 2048) at recall@10 >= 0.93, run
      on the [saved] directory at the sift path's recall, run
@@ -83,7 +121,7 @@ then non-zero and no result line is printed):
      --adaptive on the saved directory over 2,048 queries, and train on
      the 260k sample (2 iterations); the temporary files are deleted
      after;
-  11. [sift mutate] delete 10,000 ids (none comes back), insert 10,000
+  13. [sift mutate] delete 10,000 ids (none comes back), insert 10,000
      rows (256 queries at inserted rows return their ids first, at
      distance 0 to f32 rounding), update 1,000 ids (the new vectors answer
      with them, the old ones no longer); recall@10 against brute force
@@ -92,7 +130,7 @@ then non-zero and no result line is printed):
      sync debug mode "error"; dump_to_dir and load_from_dir give the same
      ids and distances; compact keeps the live ids at recall >= 0.93
      (seconds logged); device ms a batch with and without the memtable;
-  12. [gist]  the GIST-like path at full width: 1M x 960 corpus, 4,096
+  14. [gist]  the GIST-like path at full width: 1M x 960 corpus, 4,096
      queries, k-means (k=4096, 260k sample, 15 iterations), the same
      build, search_many over 4 batches of 1024 at rerank 150, topk 100,
      probes 48/64/80/96; at probe 80 recall@100 >= 0.93, 4 rough_scan
@@ -133,10 +171,13 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -164,6 +205,7 @@ KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize")
 SCAN_PROFILED_CALLS = 5
 SCAN_STAGE = "chip_smoke: rough_scan stage"
 SELECT_STAGE = "chip_smoke: selection stage"
+ESTIMATE_STAGE = "chip_smoke: estimate stage"  # a store-tier batch's
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 GATHER_KERNEL = "gather_l2_kernel"
 INT4_KERNEL = "int4_dot_kernel"
@@ -181,6 +223,18 @@ COLD_CALLS = 20
 SCAN_MODES = {2: "fold 2", 1: "fold 1", 0: "full"}
 # Shares of the rows the penalty operand filters in the kernel checks.
 PENALTY_DENSITIES = (0.01, 0.5)
+# The store tier's exact distances are host numpy, the in-memory path's the
+# gather_l2 kernel's: the two sum in other orders.
+STORE_RTOL = 1e-5
+STORE_RECALL_SLACK = 0.0005
+# Batches of the default-size block cache's run (each ~1.8 s: it misses on
+# every block of every batch).
+DEFAULT_CACHE_BATCHES = 2
+# [sift service]: the engines' micro-batching, and the traffic: frames of
+# /query_bin_batch (512 x 128 f32 fits MAX_BODY_BYTES, 1 MiB; 2,048 rows
+# would not), single JSON /query and /query_bin requests from threads.
+SERVICE = dict(max_batch=64, window_ms=2.0, frames=4, frame=512, json=512,
+               bin=256, store_bin=128, threads=16, reload_threads=8)
 
 
 def log(msg: str) -> None:
@@ -384,7 +438,7 @@ def device_ops(prof):
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
-        and e.key not in (SCAN_STAGE, SELECT_STAGE)
+        and e.key not in (SCAN_STAGE, SELECT_STAGE, ESTIMATE_STAGE)
     ]
 
 
@@ -392,16 +446,19 @@ class ProfileLostRecords(AssertionError):
     """A profile holds fewer device records than the calls it covered."""
 
 
-def retry_lost_records(fn, label, attempts=3):
-    """fn(), run again (up to ``attempts`` times in all) while its profile
-    lost device records; every other failure propagates at once. CUPTI
-    has been seen to keep only one call's records of a profiled run."""
+def retry_lost_records(fn, label, attempts=6):
+    """fn(), run again (up to ``attempts`` times in all, a second apart)
+    while its profile lost device records; every other failure propagates
+    at once. CUPTI has been seen to keep only one call's records of a
+    profiled run, or none, three profiles in a row."""
     for attempt in range(1, attempts + 1):
         try:
             return fn()
         except ProfileLostRecords as e:
             log(f"[profile {label}] attempt {attempt} lost records: "
                 f"{str(e)[:300]}")
+            torch.cuda.synchronize()
+            time.sleep(1.0)
     raise AssertionError(f"[profile {label}] lost records {attempts} times")
 
 
@@ -1397,6 +1454,607 @@ def saved_phase(rt, dev, smi, sift, work):
     return saved
 
 
+class CountingSource:
+    """A range source that counts the blocks and bytes read through it."""
+
+    def __init__(self, inner):
+        self.inner, self.size = inner, inner.size
+        self.blocks = self.bytes = 0
+        self._lock = threading.Lock()
+
+    def read_range(self, start, length):
+        raw = self.inner.read_range(start, length)
+        with self._lock:
+            self.blocks += 1
+            self.bytes += len(raw)
+        return raw
+
+
+def range_server(directory):
+    """A Range-honouring http.server over ``directory`` on 127.0.0.1, in a
+    thread of this process: a GET with ``Range: bytes=a-b`` gets a 206 with
+    those bytes. Returns the server and its URL."""
+    import functools
+    import http.server
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):
+            rng_hdr = self.headers.get("Range")
+            if not rng_hdr:
+                return super().do_GET()
+            path = self.translate_path(self.path)
+            size = os.path.getsize(path)
+            a, b = rng_hdr[len("bytes="):].split("-")
+            lo, hi = int(a), min(int(b), size - 1)
+            with open(path, "rb") as f:
+                f.seek(lo)
+                body = f.read(hi - lo + 1)
+            self.send_response(206)
+            self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    from rabitq_tpu_torch.service.server import ServiceHTTPServer
+
+    srv = ServiceHTTPServer(("127.0.0.1", 0), functools.partial(
+        Handler, directory=str(directory)))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_port}"
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the number of
+    host syncs it made (each warns once)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in rec)
+
+
+def assert_near_reference(label, ids, dists, ref_ids, ref_d):
+    """Returned (ids, dists) against a reference run's, rank by rank:
+    the distances within rtol 1e-5 (atol 1e-5 of the largest), so that an
+    id that differs is a near-tie; returns the share of equal ids."""
+    fin = np.isfinite(ref_d)
+    if not np.array_equal(np.isfinite(dists), fin):
+        raise AssertionError(f"{label}: +inf slots differ from the reference")
+    atol = 1e-5 * float(np.abs(ref_d[fin]).max())
+    if not np.allclose(dists[fin], ref_d[fin], rtol=STORE_RTOL, atol=atol):
+        bad = ~np.isclose(dists, ref_d, rtol=STORE_RTOL, atol=atol) & fin
+        raise AssertionError(
+            f"{label}: {int(bad.sum())} slots whose distance is not the "
+            f"reference's (first at {np.argwhere(bad)[0].tolist()}: "
+            f"{dists[bad][0]} vs {ref_d[bad][0]})")
+    return float((ids == ref_ids).mean())
+
+
+def profile_store_batch(lean, q, params, store, label, smi):
+    """One search_with_store batch under torch.profiler (CUPTI), with
+    estimate_candidates inside a record_function range: the device ms of
+    the kernels launched there (quantize, scan, selection), the device
+    busy ms of the whole call (kernels and copies), its wall ms under the
+    profiler and the card's idle share of it, 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rabitq_tpu_torch.store import search_with_store
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    estimate = tsearch.estimate_candidates
+
+    def staged(*args, **kwargs):
+        with record_function(ESTIMATE_STAGE):
+            return estimate(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    tsearch.estimate_candidates = staged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search_with_store(lean, q, params, store)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tsearch.estimate_candidates = estimate
+    dev_ops = device_ops(prof)
+    for kernel in (QUANT_KERNEL, SCAN_KERNEL):
+        launched = [c for k, _, c in dev_ops if kernel in k]
+        if launched != [1]:
+            raise ProfileLostRecords(f"[{label}] profiled batch: {kernel} "
+                                     f"launches {launched}")
+    busy_ms = sum(t for _, t, _ in dev_ops)
+    est_ms = sum(us for _, us in stage_kernels(
+        stage_event(prof, ESTIMATE_STAGE))) / 1e3
+    top = sorted(dev_ops, key=lambda r: -r[1])[:5]
+    log(f"[profile {label}] one batch of {q.shape[0]}: wall {wall_ms:.3f} ms "
+        f"(under the profiler), device busy {busy_ms:.3f} ms, the card idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}% of the call; "
+        f"estimate_candidates' kernels {est_ms:.3f} ms; top: "
+        + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top)
+        + f" [{smi}]")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, estimate_ms=est_ms,
+                idle=1 - busy_ms / wall_ms)
+
+
+def store_pass(rt, lean, store, sift, label, batches=None):
+    """search_with_store of the sift queries (the first ``batches``
+    batches, or all), batch by batch, at the sift path's params, with the
+    stages of each batch timed: the span between CUDA events recorded
+    around estimate_candidates (the card waits inside it for the host's
+    enqueue, so this is not its device time: profile_store_batch reads
+    that), the host ms from
+    the call to get_rows (the estimate's enqueue and the one copy of the
+    candidates), get_rows' host ms, and the host ms after it (the exact
+    distances, the merge and the top-k); the launches (counted from 0);
+    and the results checked against the in-memory index's fold-on run."""
+    from rabitq_tpu_torch.store import search_with_store
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    estimate, get_rows = tsearch.estimate_candidates, store.get_rows
+    qd, params = sift["qd"][:batches], sift["params"]
+    events, stamps, per, misses = [], {}, [], []
+
+    def timed_estimate(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = estimate(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def timed_rows(pos):
+        t = time.perf_counter()
+        out = get_rows(pos)
+        stamps["rows"] = (t, time.perf_counter())
+        return out
+
+    def run():
+        outs = []
+        for q in qd:
+            t0 = time.perf_counter()
+            outs.append(search_with_store(lean, q, params, store))
+            t1 = time.perf_counter()
+            r0, r1 = stamps["rows"]
+            per.append((t1 - t0, r0 - t0, r1 - r0, t1 - r1))
+            misses.append(rt.METRICS.miss - sum(misses))
+        return outs
+
+    tsearch.estimate_candidates, store.get_rows = timed_estimate, timed_rows
+    rt.METRICS.reset()
+    try:
+        t0 = time.perf_counter()
+        outs, counts = run_captured(run)
+        wall = time.perf_counter() - t0
+    finally:
+        tsearch.estimate_candidates = estimate
+        del store.get_rows
+    nb = qd.shape[0]
+    if not (counts["rough_scan calls"] == counts["quantize"]
+            == counts["rough_scan"] == nb and counts["gather_l2"] == 0):
+        raise AssertionError(f"[{label}] launches {counts}")
+    dists = np.concatenate([d for d, _ in outs])
+    ids = np.concatenate([i for _, i in outs])
+    rows = ids.shape[0]
+    ref_ids = sift["on"]["ids"][:rows]
+    same = assert_near_reference(
+        f"[{label}]", ids, dists, ref_ids.cpu().numpy(),
+        sift["on"]["dists"][:rows].cpu().numpy())
+    truth = sift["truth"][:rows]
+    recall = recall_of(torch.from_numpy(ids).to(truth.device).long(), truth)
+    ref_recall = recall_of(ref_ids, truth)
+    if abs(recall - ref_recall) > STORE_RECALL_SLACK:
+        raise AssertionError(f"[{label}] recall@{params.topk} {recall:.4f} "
+                             f"against the sift path's {ref_recall:.4f} on "
+                             f"the same queries")
+    ms = np.asarray(per) * 1e3
+    est = np.asarray([a.elapsed_time(b) for a, b in events])
+    return dict(qps=ids.shape[0] / wall, wall_s=wall, counts=counts,
+                batch=qd.shape[1], misses=misses,
+                same=same, recall=recall, miss=rt.METRICS.miss,
+                est_ms=est, total_ms=ms[:, 0], wait_ms=ms[:, 1],
+                rows_ms=ms[:, 2], exact_ms=ms[:, 3], nb=nb)
+
+
+def _spread(a):
+    return f"{np.mean(a):.2f} ({np.min(a):.2f}-{np.max(a):.2f})"
+
+
+def log_store_pass(label, r, smi, extra=""):
+    nb = r["nb"]
+    log(f"[{label}] {nb}x{r['batch']} queries probe={SIFT['probe']} "
+        f"rerank={SIFT['rerank']} topk={SIFT['topk']}: QPS {r['qps']:.1f} "
+        f"({r['wall_s']:.3f}s); ms a batch, mean (min-max): call "
+        f"{_spread(r['total_ms'])} = to get_rows (estimate enqueue + the "
+        f"one copy) {_spread(r['wait_ms'])} + get_rows {_spread(r['rows_ms'])}"
+        f" + exact, merge and top-k {_spread(r['exact_ms'])} (host clock); "
+        f"estimate event span {_spread(r['est_ms'])} (CUDA events, the "
+        f"host's enqueue included); launches a "
+        f"batch quantize {r['counts']['quantize'] / nb:g}, rough_scan "
+        f"{r['counts']['rough_scan'] / nb:g}, gather_l2 "
+        f"{r['counts']['gather_l2'] / nb:g}; ids equal to the in-memory "
+        f"index's on {r['same']:.5f} of slots (the rest near-ties, every "
+        f"distance within rtol {STORE_RTOL}); recall@{SIFT['topk']} "
+        f"{r['recall']:.4f}; cache misses {r['miss']} (a batch: "
+        f"{', '.join(map(str, r['misses']))}){extra} [{smi}]")
+
+
+def jax_style_rows(store, pos):
+    """The JAX package's BlockCachedStore.get_rows loop (a boolean mask
+    over all positions for each distinct block), for timing against the
+    port's argsort grouping on the same store."""
+    out = np.empty((pos.shape[0], store.dim), dtype=np.float32)
+    block_ids = pos // store.num_per_block
+    for b in np.unique(block_ids):
+        blk = store._get_block(int(b))
+        sel = block_ids == b
+        out[sel] = blk[pos[sel] - b * store.num_per_block]
+    store.flush()
+    return out
+
+
+def store_phase(rt, dev, smi, sift, saved, work):
+    """[sift store <kind>]: the saved sift index loaded base-less onto the
+    card and searched with search_with_store through each store kind.
+    Returns the launch counts summed over the passes, and the base-less
+    index (the service phase's store engine serves it)."""
+    from rabitq_tpu_torch.index.serialize import load_from_dir
+    from rabitq_tpu_torch.store import (
+        BlockCachedStore, DeviceStore, FileBlockSource, HttpRangeSource,
+        MmapStore, search_with_store)
+
+    t0 = time.perf_counter()
+    lean = load_from_dir(saved, keep_base=False, device=dev)
+    torch.cuda.synchronize()
+    log(f"[sift store] load_from_dir(keep_base=False) onto the card "
+        f"{time.perf_counter() - t0:.2f}s (base.fvecs "
+        f"{(saved / 'base.fvecs').stat().st_size / 1e9:.3f} GB stays on disk)")
+    fvecs = saved / "base.fvecs"
+    q0, params = sift["qd"][0], sift["params"]
+    runs, total = {}, {}
+
+    def one(kind, store, batches=None):
+        r = store_pass(rt, lean, store, sift, f"sift store {kind}", batches)
+        extra = ""
+        if batches is None:
+            r["syncs"] = count_syncs(
+                lambda: search_with_store(lean, q0, params, store))
+            extra = f"; host syncs in one batch {r['syncs']}"
+        if batches is None and kind != "blockcache cold":
+            r["profile"] = retry_lost_records(
+                lambda: profile_store_batch(lean, q0, params, store,
+                                            f"sift store {kind}", smi),
+                f"sift store {kind}")
+        log_store_pass(f"sift store {kind}", r, smi, extra)
+        for key, v in r["counts"].items():
+            total[key] = total.get(key, 0) + v
+        runs[kind] = r
+        return r
+
+    one("device", DeviceStore(sift["index"].base))
+    one("mmap", MmapStore(fvecs))
+
+    def cache_line(src, store):
+        return (f"; blocks read {src.blocks} ({src.bytes / 1e9:.3f} GB), "
+                f"cache_backend {store.cache_backend}, max_cached_blocks "
+                f"{store._max_blocks}, {store.num_per_block} rows a block")
+
+    # The default max_cached_blocks (1024) is below the file's blocks: each
+    # batch sweeps nearly every block through the LRU, which then misses
+    # on all of them. Two batches show it; the checked passes below use a
+    # cache of the whole file.
+    src = CountingSource(FileBlockSource(fvecs))
+    default = BlockCachedStore(src, lean.dim)
+    n_blocks = -(-lean.n // default.num_per_block)
+    r = one("blockcache default", default, batches=DEFAULT_CACHE_BATCHES)
+    log(f"[sift store blockcache default] the default size, no SQLite, "
+        f"{DEFAULT_CACHE_BATCHES} batches: misses {r['misses']} a batch "
+        f"against {n_blocks} blocks in the file" + cache_line(src, default))
+    if n_blocks > default._max_blocks and min(r["misses"]) < default._max_blocks:
+        raise AssertionError("[sift store blockcache default] a batch hit "
+                             "the LRU")
+    src = CountingSource(FileBlockSource(fvecs))
+    whole = BlockCachedStore(src, lean.dim, sqlite_path=work / "cache.db",
+                             max_cached_blocks=n_blocks)
+    for temp in ("cold", "warm"):
+        src.blocks = src.bytes = 0
+        r = one(f"blockcache {temp}", whole)
+        log(f"[sift store blockcache {temp}] a cache of all {n_blocks} "
+            f"blocks, SQLite under the work directory: misses {r['miss']}"
+            + cache_line(src, whole))
+    if default.cache_backend != "native" or whole.cache_backend != "native":
+        raise AssertionError("[sift store blockcache] cache_backend is not "
+                             "native")
+    if runs["blockcache warm"]["miss"] or src.blocks:
+        raise AssertionError("[sift store blockcache warm] a warm pass of a "
+                             "cache holding the whole file missed")
+    if not 0 < runs["blockcache cold"]["miss"] <= n_blocks:
+        raise AssertionError("[sift store blockcache cold] misses "
+                             f"{runs['blockcache cold']['miss']}: not each "
+                             "block once")
+    # One batch's candidate positions, as search_with_store hands them on.
+    pos = rt.estimate_candidates(lean, q0, params).pos.reshape(-1).cpu()
+    pos = pos.numpy()
+    t0 = time.perf_counter()
+    grouped = whole.get_rows(pos)
+    grouped_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    masked = jax_style_rows(whole, pos)
+    masked_ms = 1e3 * (time.perf_counter() - t0)
+    if not np.array_equal(grouped, masked):
+        raise AssertionError("get_rows differs from the JAX-style loop")
+    log(f"[sift store blockcache get_rows] one batch's {pos.size} positions "
+        f"({len(np.unique(pos // whole.num_per_block))} distinct blocks) on "
+        f"the warm whole-file cache: grouped by one argsort {grouped_ms:.2f} "
+        f"ms, the JAX package's mask loop {masked_ms:.2f} ms, rows equal "
+        f"[{smi}]")
+
+    srv, url = range_server(saved)
+    try:
+        http_src = CountingSource(HttpRangeSource(url + "/base.fvecs"))
+        http = BlockCachedStore(http_src, lean.dim, max_cached_blocks=n_blocks)
+        r = one("http", http)
+        log(f"[sift store http] HttpRangeSource against a Range-honouring "
+            f"http.server on 127.0.0.1 (206s), a cache of all blocks, cold: "
+            f"misses {r['miss']}" + cache_line(http_src, http))
+        if http.cache_backend != "native" or not r["miss"]:
+            raise AssertionError("[sift store http] cold pass: "
+                                 f"{http.cache_backend}, misses {r['miss']}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return dict(runs=runs, counts=total, lean=lean,
+                get_rows_ms=(grouped_ms, masked_ms))
+
+
+def percentiles(lat_s):
+    ms = np.asarray(lat_s) * 1e3
+    return f"p50 {np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} ms"
+
+
+def service_phase(rt, dev, smi, sift, saved, lean):
+    """[sift service]: BatchingEngine + make_handler on a ServiceHTTPServer
+    at 127.0.0.1:0 in a thread; the default engine the device-resident sift
+    index, "store" a block-cache engine over the saved base. Traffic
+    through the port's client helpers; the checks of the module
+    docstring. Returns the launch counts."""
+    import concurrent.futures as cf
+    import urllib.error
+    import urllib.request
+
+    from rabitq_tpu_torch.service import client
+    from rabitq_tpu_torch.service.server import (
+        BatchingEngine, ServiceHTTPServer, make_handler)
+    from rabitq_tpu_torch.store import BlockCachedStore, FileBlockSource
+
+    cfg = SERVICE
+    probe, topk = SIFT["probe"], SIFT["topk"]
+    engine = BatchingEngine(sift["index"], max_batch=cfg["max_batch"],
+                            window_ms=cfg["window_ms"])
+    store_engine = BatchingEngine(
+        lean, BlockCachedStore(FileBlockSource(saved / "base.fvecs"),
+                               lean.dim),
+        max_batch=cfg["max_batch"], window_ms=cfg["window_ms"])
+    srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(
+        engine, default_probe=probe, default_topk=topk,
+        engines={"default": engine, "store": store_engine},
+        allow_reload=True))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+
+    def post_json(path, payload):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def metrics():
+        with urllib.request.urlopen(url + "/metrics") as resp:
+            text = resp.read().decode()
+        return {k: int(v) for k, v in
+                re.findall(r"(query|rough|precise|cache miss): (\d+)", text)}
+
+    n_b, n_j, n_q = cfg["frames"] * cfg["frame"], cfg["json"], cfg["bin"]
+    n_s = cfg["store_bin"]
+    rows = sift["flat_q"][: n_b + n_j + n_q]
+    q_host = rows.cpu().numpy()
+    truth = sift["truth"][: rows.shape[0]]
+    ref_params = rt.SearchParams(probe=probe, topk=topk,
+                                 rerank=engine.default_rerank)
+    ref = [rt.search(sift["index"], rows[a : a + 256], ref_params)
+           for a in range(0, rows.shape[0], 256)]
+    ref_d = torch.cat([d for d, _ in ref]).cpu().numpy()
+    ref_i = torch.cat([i for _, i in ref]).cpu().numpy()
+    base = sift["base"]
+    out = {}
+    try:
+        for u in (url, url + "/index/store"):  # first calls, untimed
+            client.query_once_bin(u, q_host[0], topk, probe)
+
+        def device_traffic():
+            ids = np.empty((rows.shape[0], topk), np.int64)
+            lat = {"bin_batch": [], "json": [], "bin": []}
+            wall = {}
+            t0 = time.perf_counter()
+            for f in range(cfg["frames"]):
+                a = f * cfg["frame"]
+                i, _, dt = client.query_batch_bin(
+                    url, q_host[a : a + cfg["frame"]], topk, probe)
+                ids[a : a + cfg["frame"]] = i
+                lat["bin_batch"].append(dt)
+            wall["bin_batch"] = time.perf_counter() - t0
+
+            def json_one(j):
+                got, dt = client.query_once(url, q_host[n_b + j], topk, probe)
+                return j, got, dt
+
+            def bin_one(j):
+                got, _, dt = client.query_once_bin(
+                    url, q_host[n_b + n_j + j], topk, probe)
+                return j, got, dt
+
+            for name, fn, count, at in (("json", json_one, n_j, n_b),
+                                        ("bin", bin_one, n_q, n_b + n_j)):
+                t0 = time.perf_counter()
+                with cf.ThreadPoolExecutor(cfg["threads"]) as pool:
+                    for j, got, dt in pool.map(fn, range(count)):
+                        if len(got) != topk:
+                            raise AssertionError(f"[sift service] {name} "
+                                                 f"query {j}: {len(got)} ids")
+                        ids[at + j] = got
+                        lat[name].append(dt)
+                wall[name] = time.perf_counter() - t0
+            return ids, lat, wall
+
+        rt.METRICS.reset()
+        (ids, lat, wall), counts = run_captured(device_traffic)
+        sent = rows.shape[0]
+        m = metrics()
+        calls = counts["rough_scan calls"]
+        if not (calls and counts["quantize"] == counts["rough_scan"]
+                == counts["gather_l2"] == calls):
+            raise AssertionError(f"[sift service] launches {counts}")
+        if m["query"] != sent:
+            raise AssertionError(f"[sift service] /metrics query {m['query']}"
+                                 f" against {sent} sent")
+        dists = ((base[ids] - q_host[:, None, :]) ** 2).sum(-1)
+        same = assert_near_reference("[sift service]", ids, dists, ref_i,
+                                     ref_d)
+        recall = recall_of(torch.from_numpy(ids).to(truth.device), truth)
+        if recall < MIN_RECALL:
+            raise AssertionError(f"[sift service] recall@{topk} {recall:.4f}")
+        out["counts"] = dict(counts)
+        log(f"[sift service] {sent} queries to the device engine (max_batch "
+            f"{cfg['max_batch']}, window {cfg['window_ms']} ms, rerank "
+            f"{engine.default_rerank}): /query_bin_batch {cfg['frames']} "
+            f"frames of {cfg['frame']} QPS {n_b / wall['bin_batch']:.1f} "
+            f"(a frame {percentiles(lat['bin_batch'])}); /query JSON "
+            f"{n_j} from {cfg['threads']} threads QPS "
+            f"{n_j / wall['json']:.1f} ({percentiles(lat['json'])}); "
+            f"/query_bin {n_q} from {cfg['threads']} threads QPS "
+            f"{n_q / wall['bin']:.1f} ({percentiles(lat['bin'])}); "
+            f"{calls} device calls, {sent / calls:.1f} rows a call, each "
+            f"launching quantize, rough_scan and gather_l2 once; ids equal "
+            f"to search() at the engine's params on {same:.5f} of slots "
+            f"(the rest near-ties); recall@{topk} {recall:.4f}; /metrics "
+            f"query {m['query']} = sent [{smi}]")
+
+        def store_traffic():
+            def one(j):
+                got, _, dt = client.query_once_bin(
+                    url + "/index/store", q_host[j], topk, probe)
+                return got, dt
+
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(cfg["threads"]) as pool:
+                res = list(pool.map(one, range(n_s)))
+            return res, time.perf_counter() - t0
+
+        rt.METRICS.reset()
+        (res, s_wall), s_counts = run_captured(store_traffic)
+        m = metrics()
+        s_calls = s_counts["rough_scan calls"]
+        if not (s_calls and s_counts["quantize"] == s_counts["rough_scan"]
+                == s_calls and s_counts["gather_l2"] == 0):
+            raise AssertionError(f"[sift service store] launches {s_counts}")
+        if m["cache miss"] <= 0 or m["query"] != n_s:
+            raise AssertionError(f"[sift service store] /metrics {m}")
+        s_ids = np.stack([g for g, _ in res])
+        s_recall = recall_of(torch.from_numpy(s_ids).to(truth.device),
+                             truth[:n_s])
+        if s_recall < MIN_RECALL:
+            raise AssertionError(f"[sift service store] recall {s_recall}")
+        for key, v in s_counts.items():
+            out["counts"][key] += v
+        log(f"[sift service store] {n_s} /index/store/query_bin from "
+            f"{cfg['threads']} threads (block cache, default size, cold): "
+            f"QPS {n_s / s_wall:.1f} ({percentiles([dt for _, dt in res])}); "
+            f"{s_calls} device calls ({n_s / s_calls:.1f} rows a call), "
+            f"gather_l2 0; recall@{topk} {s_recall:.4f}; /metrics cache "
+            f"miss {m['cache miss']} [{smi}]")
+
+        n_ids = int(sift["index"].map_ids.max()) + 1
+        allow = np.random.default_rng(4).choice(n_ids, n_ids // 10,
+                                                replace=False)
+        st, body = post_json("/filters", dict(name="tenth",
+                                              allow_ids=allow.tolist()))
+        if st != 200 or body["size"] != allow.size:
+            raise AssertionError(f"[sift service filter] {st} {body}")
+        t0 = time.perf_counter()
+        st, body = post_json("/query", dict(
+            query=q_host[:256].tolist(), top_k=topk, probe=probe,
+            filter="tenth"))
+        f_s = time.perf_counter() - t0
+        got = np.concatenate([np.asarray(r, np.int64) for r in body["ids"]])
+        if st != 200 or not np.isin(got, allow).all() or got.size == 0:
+            raise AssertionError(f"[sift service filter] {st}: an id not "
+                                 "allowed, or none")
+        log(f"[sift service filter] a 10% allowlist ({allow.size} ids) by "
+            f"POST /filters; one JSON POST of 256 rows with it "
+            f"{f_s * 1e3:.1f} ms: {got.size} ids, every one allowed")
+
+        stop, failures, done = threading.Event(), [], [0]
+
+        def hammer(k):
+            j = k
+            while not stop.is_set():
+                try:
+                    client.query_once_bin(url, q_host[j % n_b], topk, probe)
+                    done[0] += 1
+                except Exception as e:  # every failure is reported below
+                    failures.append(repr(e))
+                j += cfg["reload_threads"]
+
+        threads = [threading.Thread(target=hammer, args=(k,))
+                   for k in range(cfg["reload_threads"])]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        st, body = post_json("/admin/reload", dict(dir=str(saved)))
+        reload_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in threads) or failures:
+            raise AssertionError(f"[sift service reload] {failures[:3]}")
+        if st != 200 or body != dict(ok=True, n=sift["index"].n):
+            raise AssertionError(f"[sift service reload] {st} {body}")
+        if engine.index is sift["index"]:
+            raise AssertionError("[sift service reload] no swap")
+        st409, _ = post_json("/admin/reload", dict(dir=str(saved),
+                                                   index="store"))
+        if st409 != 409:
+            raise AssertionError(f"[sift service reload] store engine {st409}")
+        log(f"[sift service reload] POST /admin/reload of the saved directory "
+            f"took {reload_s:.2f}s while {cfg['reload_threads']} threads "
+            f"sent {done[0]} /query_bin requests: none failed; the store "
+            f"engine answered 409 [{smi}]")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+        store_engine.close()
+    return out
+
+
 def cli_phase(dev, smi, sift, saved, work, min_recall):
     """rabitq_tpu_torch.cli in-process: build, run on the built directory
     and on ``saved``, run --rerank-mode heap over 64 queries, train on the
@@ -2107,11 +2765,15 @@ def main() -> int:
     tuned = autotune_phase(rt, dev, smi, sift)
     path_counts["sift autotune"] = tuned["counts"]
 
-    # 9-11. The sift index saved and loaded; the CLI on the sift data;
-    # mutations.
+    # 9-13. The sift index saved and loaded; the store tier and the
+    # service on it; the CLI on the sift data; mutations.
     work = Path(tempfile.mkdtemp(prefix="rabitq_smoke_"))
     try:
         saved = saved_phase(rt, dev, smi, sift, work)
+        store = store_phase(rt, dev, smi, sift, saved, work)
+        path_counts["sift store"] = store["counts"]
+        service = service_phase(rt, dev, smi, sift, saved, store.pop("lean"))
+        path_counts["sift service"] = service["counts"]
         cli_runs = cli_phase(dev, smi, sift, saved, work, MIN_RECALL)
         mutate = mutate_phase(rt, dev, smi, sift, work)
         path_counts["sift mutate"] = mutate["counts"]
@@ -2122,7 +2784,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 12. The gist path, and a filter on it.
+    # 14. The gist path, and a filter on it.
     gist = search_path(rt, dev, smi, "gist", GIST, GIST_PROBES,
                        GIST_CHECK_PROBE, MIN_RECALL)
     gist_on, gist_off = gist["on"], gist["off"]

@@ -386,8 +386,8 @@ def search_with_stats(
     if index.base is None:
         raise ValueError(
             "index has no base rows to rerank against (loaded with "
-            "keep_base=False?): the store tier that serves such an index is "
-            "not ported (ROADMAP queue 1 item 6)"
+            "keep_base=False?): the store tier serves such an index, "
+            "through rabitq_tpu_torch.store.search_with_store"
         )
     cand = estimate_candidates(index, queries, params, row_filter)
     exact, pos = _exact_rerank(

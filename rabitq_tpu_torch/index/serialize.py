@@ -204,8 +204,9 @@ def load_from_dir(
 
     A directory without meta.json (the Rust reference's) needs
     ``generator``: it draws the rand_bias dither (torch.rand, [dim]).
-    ``keep_base=False`` leaves the base on disk; searching such an index
-    raises (the store tier that would serve its rerank is not ported).
+    ``keep_base=False`` leaves the base on disk; such an index is searched
+    through the store tier (rabitq_tpu_torch.store.search_with_store) and
+    ``search`` raises on it.
     """
     path = Path(path)
     device = resolve_device(device, generator)

@@ -734,3 +734,57 @@ def test_filtered_mutated_adaptive_search_on_card(dev):
     assert p_a == p_c
     same = i_a.cpu() == i_c
     assert same.float().mean() >= 0.98
+
+
+def test_search_with_store_on_card_equals_cpu(dev, tmp_path):
+    """The store tier on the card: a base-less index (and a mutated one
+    under a filter) searched with search_with_store through a DeviceStore
+    on the card launches the quantize and scan kernels once and gather_l2
+    never, and equals the same call on the CPU but at near-ties (the
+    exact distances are host numpy over the same rows: equal ids give
+    equal distances)."""
+    from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
+    from rabitq_tpu_torch.store import DeviceStore, MmapStore, search_with_store
+
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((16, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 6000)]
+            + 0.3 * rng.standard_normal((6000, 128))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    dump_to_dir(idx, tmp_path)
+    lean = load_from_dir(tmp_path, keep_base=False, device=dev)
+    lean_cpu = load_from_dir(tmp_path, keep_base=False, device="cpu")
+    queries = base[:40] + np.float32(0.01)
+    params = rt.SearchParams(probe=6, topk=10, rerank=48)
+    fresh = rng.standard_normal((30, 128)).astype(np.float32)
+    mut = rt.delete(rt.insert(idx, fresh), np.arange(0, 6000, 9))
+    mut_cpu = dataclasses.replace(mut, **{
+        f.name: getattr(mut, f.name).cpu() for f in dataclasses.fields(mut)
+        if isinstance(getattr(mut, f.name), torch.Tensor)
+    })
+    allow = np.arange(0, 6030, 2)
+    cases = [
+        (lean, lean_cpu, DeviceStore(idx.base), DeviceStore(idx.base.cpu()),
+         None, None, queries),
+        (lean, lean_cpu, MmapStore(tmp_path / "base.fvecs"),
+         MmapStore(tmp_path / "base.fvecs"), None, None,
+         torch.from_numpy(queries).to(dev)),
+        (mut, mut_cpu, DeviceStore(mut.base), DeviceStore(mut_cpu.base),
+         rt.make_row_filter(mut, allow_ids=allow),
+         rt.make_row_filter(mut_cpu, allow_ids=allow),
+         np.concatenate([queries[:20], fresh[:8] + np.float32(0.01)])),
+    ]
+    counters = (cuda_quantize_residuals, cuda_rough_scan, cuda_gather_l2)
+    for gidx, cidx, gst, cst, gf, cf, q in cases:
+        before = [c.launches for c in counters]
+        d_g, i_g = search_with_store(gidx, q, params, gst, row_filter=gf)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0]
+        q_cpu = q.cpu().numpy() if isinstance(q, torch.Tensor) else q
+        d_c, i_c = search_with_store(cidx, q_cpu, params, cst, row_filter=cf)
+        same = i_g == i_c
+        assert same.mean() >= 0.98
+        np.testing.assert_array_equal(d_g[same], d_c[same])
+        if gf is not None:
+            assert np.isin(i_g[i_g >= 0], allow).all()
