@@ -130,7 +130,38 @@ then non-zero and no result line is printed):
      sync debug mode "error"; dump_to_dir and load_from_dir give the same
      ids and distances; compact keeps the live ids at recall >= 0.93
      (seconds logged); device ms a batch with and without the memtable;
-  14. [gist]  the GIST-like path at full width: 1M x 960 corpus, 4,096
+  14. [sift shard] the sift index sharded (shard_index, from its host
+     copy) onto an explicit mesh of S entries of cuda:0, S = 1, 2, 4, with
+     the seconds, the rows a shard and the peak device memory of the call
+     (no more than the shards' own bytes: no full-size copy);
+     sharded_search of the 16,384 queries in batches of 2048 at the sift
+     params, in the heuristic mode and the exact one (S = 1 exact only):
+     recall@10 >= 0.93, the exact mode's >= the unsharded run's - 0.0005,
+     at S = 1 the unsharded ids but at near-ties, every distance its id's,
+     each search kernel launched S times a batch, one batch under sync
+     debug mode "error", QPS, device and host enqueue ms a batch; one
+     shard a card where the host has S cards (else logged as skipped).
+     Then [sift shard store]: the saved base-less index at S = 4 with an
+     MmapStore over the saved base.fvecs and shard_global_positions: the
+     ids of sharded_search but at near-ties, one copy to the host a device
+     a batch, no gather_l2; [sift shard build]: build_index_sharded at
+     S = 4 bit-equal to shard_index(build_index(...)) of the sift path,
+     seconds of each; [sift shard ckpt]: dump_index_sharded and
+     load_index_sharded at S = 4, bit-identical, the search equal, dump
+     and load seconds; [sift shard service]: a mesh BatchingEngine on the
+     S = 4 index behind a ServiceHTTPServer in a thread: /query_bin_batch
+     frames and /query_bin requests from threads (ids of sharded_search at
+     the engine's params but at near-ties, QPS, p50/p99), a 10% allowlist,
+     /admin/reload of the checkpoint while 8 threads query (none fails);
+  15. [multihost] rabitq_tpu_torch.tools.multihost_demo on the card: two
+     processes in one torch.distributed world, backend gloo (NCCL needs
+     one card a rank), each printing PARITY OK;
+  16. [dryrun] rabitq_tpu_torch.graft_entry.dryrun_multichip(4, devices=
+     [cuda:0] * 4);
+  17. [kmeans tree] hierarchical_kmeans(T=64, D=64) on the sift sample,
+     then the sift build and search with its centroids: recall@10 >= 0.90,
+     seconds and recall beside flat k-means';
+  18. [gist]  the GIST-like path at full width: 1M x 960 corpus, 4,096
      queries, k-means (k=4096, 260k sample, 15 iterations), the same
      build, search_many over 4 batches of 1024 at rerank 150, topk 100,
      probes 48/64/80/96; at probe 80 recall@100 >= 0.93, 4 rough_scan
@@ -1357,8 +1388,9 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
         generator=torch.Generator(device=dev).manual_seed(1),
     )
     torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
     log(f"[{label} kmeans] k={K} on {TRAIN_CAP} rows, {KMEANS_ITERS} iters: "
-        f"{time.perf_counter() - t0:.2f}s [{smi}]")
+        f"{kmeans_s:.2f}s [{smi}]")
     del sample
 
     t0 = time.perf_counter()
@@ -1367,9 +1399,10 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
         generator=torch.Generator(device=dev).manual_seed(2),
     )
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     log(f"[{label} build_index] n={index.n} (spilled {index.n - n}) "
         f"k={index.k} dim={index.dim} capacity={index.capacity}: "
-        f"{time.perf_counter() - t0:.2f}s [{smi}]")
+        f"{build_s:.2f}s [{smi}]")
 
     checked = None
     for probe in probes:
@@ -1395,7 +1428,8 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
                               min_recall)
         checked = dict(index=index, params=params, qd=qd, flat_q=flat_q,
                        truth=truth, base=base, centroids=centroids,
-                       on=runs["fold on"][0], off=runs["fold off"][0])
+                       on=runs["fold on"][0], off=runs["fold off"][0],
+                       kmeans_s=kmeans_s, build_s=build_s)
         log(f"[{label} check] probe {probe}, fold on and off: shapes, finite "
             f"distances equal to exact, recall, launches ok")
     if checked is None:
@@ -1405,14 +1439,7 @@ def search_path(rt, dev, smi, label, cfg, probes, check_probe, min_recall):
 
 def sift_cpu_agreement(rt, index, params, flat_q, ids, dists, topk):
     """The same 64 queries through the CPU path (the kernels' twins)."""
-    cpu_index = dataclasses.replace(
-        index, **{
-            f.name: getattr(index, f.name).cpu()
-            for f in dataclasses.fields(index)
-            if isinstance(getattr(index, f.name), torch.Tensor)
-        },
-    )
-    d_cpu, i_cpu = rt.search(cpu_index, flat_q[:64].cpu(), params)
+    d_cpu, i_cpu = rt.search(cpu_copy(index), flat_q[:64].cpu(), params)
     same = i_cpu == ids[:64].cpu()
     agree = float(same.float().mean())
     if agree < 0.98 or not torch.allclose(
@@ -1819,6 +1846,58 @@ def store_phase(rt, dev, smi, sift, saved, work):
                 get_rows_ms=(grouped_ms, masked_ms))
 
 
+def post_json_to(url, path, payload):
+    """(status, JSON body) of a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def reload_under_load(url, q_host, topk, probe, n_threads, directory,
+                      label):
+    """POST /admin/reload of ``directory`` while ``n_threads`` threads keep
+    sending /query_bin requests of ``q_host`` rows; raises if a request
+    failed. Returns (status, body, reload seconds, requests sent)."""
+    from rabitq_tpu_torch.service import client
+
+    stop, failures, done = threading.Event(), [], [0]
+
+    def hammer(k):
+        j = k
+        while not stop.is_set():
+            try:
+                client.query_once_bin(url, q_host[j % q_host.shape[0]],
+                                      topk, probe)
+                done[0] += 1
+            except Exception as e:  # every failure is reported below
+                failures.append(repr(e))
+            j += n_threads
+
+    threads = [threading.Thread(target=hammer, args=(k,))
+               for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    st, body = post_json_to(url, "/admin/reload", dict(dir=str(directory)))
+    reload_s = time.perf_counter() - t0
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in threads) or failures:
+        raise AssertionError(f"[{label}] {failures[:3]}")
+    return st, body, reload_s, done[0]
+
+
 def percentiles(lat_s):
     ms = np.asarray(lat_s) * 1e3
     return f"p50 {np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} ms"
@@ -1831,7 +1910,6 @@ def service_phase(rt, dev, smi, sift, saved, lean):
     through the port's client helpers; the checks of the module
     docstring. Returns the launch counts."""
     import concurrent.futures as cf
-    import urllib.error
     import urllib.request
 
     from rabitq_tpu_torch.service import client
@@ -1855,14 +1933,7 @@ def service_phase(rt, dev, smi, sift, saved, lean):
     url = f"http://127.0.0.1:{srv.server_port}"
 
     def post_json(path, payload):
-        req = urllib.request.Request(
-            url + path, data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"})
-        try:
-            with urllib.request.urlopen(req) as resp:
-                return resp.status, json.loads(resp.read())
-        except urllib.error.HTTPError as e:
-            return e.code, json.loads(e.read())
+        return post_json_to(url, path, payload)
 
     def metrics():
         with urllib.request.urlopen(url + "/metrics") as resp:
@@ -2009,32 +2080,9 @@ def service_phase(rt, dev, smi, sift, saved, lean):
             f"POST /filters; one JSON POST of 256 rows with it "
             f"{f_s * 1e3:.1f} ms: {got.size} ids, every one allowed")
 
-        stop, failures, done = threading.Event(), [], [0]
-
-        def hammer(k):
-            j = k
-            while not stop.is_set():
-                try:
-                    client.query_once_bin(url, q_host[j % n_b], topk, probe)
-                    done[0] += 1
-                except Exception as e:  # every failure is reported below
-                    failures.append(repr(e))
-                j += cfg["reload_threads"]
-
-        threads = [threading.Thread(target=hammer, args=(k,))
-                   for k in range(cfg["reload_threads"])]
-        for t in threads:
-            t.start()
-        time.sleep(0.5)
-        t0 = time.perf_counter()
-        st, body = post_json("/admin/reload", dict(dir=str(saved)))
-        reload_s = time.perf_counter() - t0
-        time.sleep(0.5)
-        stop.set()
-        for t in threads:
-            t.join(timeout=60)
-        if any(t.is_alive() for t in threads) or failures:
-            raise AssertionError(f"[sift service reload] {failures[:3]}")
+        st, body, reload_s, done = reload_under_load(
+            url, q_host[:n_b], topk, probe, cfg["reload_threads"], saved,
+            "sift service reload")
         if st != 200 or body != dict(ok=True, n=sift["index"].n):
             raise AssertionError(f"[sift service reload] {st} {body}")
         if engine.index is sift["index"]:
@@ -2045,7 +2093,7 @@ def service_phase(rt, dev, smi, sift, saved, lean):
             raise AssertionError(f"[sift service reload] store engine {st409}")
         log(f"[sift service reload] POST /admin/reload of the saved directory "
             f"took {reload_s:.2f}s while {cfg['reload_threads']} threads "
-            f"sent {done[0]} /query_bin requests: none failed; the store "
+            f"sent {done} /query_bin requests: none failed; the store "
             f"engine answered 409 [{smi}]")
     finally:
         srv.shutdown()
@@ -2200,13 +2248,13 @@ def assert_exact_distances(vec_of, flat_q, ids, dists, label):
                 f"{label}: returned distances are not the ids' distances")
 
 
-def timed_search_many(rt, index, qd, params, row_filter=None):
-    """search_many of the query set (after a warm-up batch) with the launch
-    counts (from 0 just before it), wall seconds and QPS (host clock to
-    the synchronize), device ms a batch (CUDA events) and host enqueue ms
-    a batch; ids and dists [nq, topk]."""
+def timed_batches(run_all, warm_up, qd, topk):
+    """``run_all()`` (every batch of ``qd``: stacked dists and ids) after
+    ``warm_up()``, with the launch counts (from 0 just before it), wall
+    seconds and QPS (host clock to the synchronize), device ms a batch
+    (CUDA events) and host enqueue ms a batch; ids and dists [nq, topk]."""
     nb = qd.shape[0]
-    rt.search(index, qd[0], params, row_filter)  # warm-up
+    warm_up()
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -2215,7 +2263,7 @@ def timed_search_many(rt, index, qd, params, row_filter=None):
     def run():
         ev0.record()
         t = time.perf_counter()
-        out = rt.search_many(index, qd, params, row_filter)
+        out = run_all()
         enqueue.append(time.perf_counter() - t)
         ev1.record()
         return out
@@ -2223,12 +2271,18 @@ def timed_search_many(rt, index, qd, params, row_filter=None):
     t0 = time.perf_counter()
     (dists, ids), counts = run_captured(run)
     search_s = time.perf_counter() - t0
-    topk = params.topk
     return dict(dists=dists.reshape(-1, topk), ids=ids.reshape(-1, topk),
                 counts=counts, search_s=search_s,
                 qps=nb * qd.shape[1] / search_s,
                 device_ms=ev0.elapsed_time(ev1) / nb,
                 enqueue_ms=1e3 * enqueue[0] / nb)
+
+
+def timed_search_many(rt, index, qd, params, row_filter=None):
+    """timed_batches of search_many over the query set."""
+    return timed_batches(
+        lambda: rt.search_many(index, qd, params, row_filter),
+        lambda: rt.search(index, qd[0], params, row_filter), qd, params.topk)
 
 
 def assert_path_launches(counts, label, penalty=False, qpack=None):
@@ -2684,12 +2738,506 @@ def autotune_phase(rt, dev, smi, sift):
                 counts=counts)
 
 
+def cpu_copy(index):
+    """The index with every tensor on the host."""
+    return dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).cpu()
+        for f in dataclasses.fields(index)
+        if isinstance(getattr(index, f.name), torch.Tensor)
+    })
+
+
+def sharded_bytes(sidx):
+    return sum(t.numel() * t.element_size() for _, sh in sidx.local()
+               for t in (getattr(sh, f.name) for f in dataclasses.fields(sh))
+               if isinstance(t, torch.Tensor))
+
+
+def shard_timed(tp, index_cpu, mesh, label):
+    """shard_index from the host copy, with its seconds and the peak device
+    memory it allocated above what was allocated before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sidx = tp.shard_index(index_cpu, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    own = sharded_bytes(sidx)
+    if peak > own + (64 << 20):
+        raise AssertionError(f"[{label}] shard_index peaked {peak} bytes "
+                             f"above its shards' {own}: a full-size copy?")
+    rows = [sh.n for _, sh in sidx.local()]
+    log(f"[{label}] shard_index from the host copy onto "
+        f"{[str(d) for d in mesh.devices]}: {secs:.2f}s, rows a shard "
+        f"{rows}, k_max {sidx.k_max}, peak device memory during the call "
+        f"{peak / 1e9:.3f} GB above its start, the shards' own bytes "
+        f"{own / 1e9:.3f} GB")
+    return sidx
+
+
+def sharded_run(tp, sidx, mesh, qd, params, exact):
+    """timed_batches of sharded_search, a call a batch."""
+    def one(q):
+        return tp.sharded_search(sidx, q, params, mesh, exact=exact)
+
+    def run_all():
+        out = [one(q) for q in qd]
+        return (torch.stack([d for d, _ in out]),
+                torch.stack([i for _, i in out]))
+
+    return timed_batches(run_all, lambda: one(qd[0]), qd, params.topk)
+
+
+def assert_shard_launches(counts, s, nb, label, gather=True):
+    """Each search kernel launched once a shard a batch (gather_l2 none on
+    the store tier)."""
+    want = {"rough_scan calls": s * nb, "quantize": s * nb,
+            "rough_scan": s * nb, "gather_l2": s * nb if gather else 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"[{label}] launches {counts}, want {want}")
+
+
+def profile_sharded_batch(tp, sidx, mesh, q, params, exact, label, smi):
+    """One sharded_search batch under torch.profiler (CUPTI): the device
+    busy ms (kernels and copies), the wall ms under the profiler and the
+    card's idle share of it; each of the quantize and scan kernels must
+    show S launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tp.sharded_search(sidx, q, params, mesh, exact=exact)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ops = device_ops(prof)
+    for kernel in (QUANT_KERNEL, SCAN_KERNEL, GATHER_KERNEL):
+        launched = sum(c for k, _, c in dev_ops if kernel in k)
+        if launched != mesh.size:
+            raise ProfileLostRecords(f"[{label}] profiled batch: {kernel} "
+                                     f"launches {launched}")
+    busy_ms = sum(t for _, t, _ in dev_ops)
+    top = sorted(dev_ops, key=lambda r: -r[1])[:4]
+    log(f"[profile {label}] one batch of {q.shape[0]}: wall {wall_ms:.3f} ms "
+        f"(under the profiler), device busy {busy_ms:.3f} ms, the card idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}% of the call, "
+        f"{sum(c for _, _, c in dev_ops)} device ops; top: "
+        + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top)
+        + f" [{smi}]")
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms,
+                idle=1 - busy_ms / wall_ms)
+
+
+def check_sharded_batch_sync(tp, sidx, mesh, q, params, exact, label):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tp.sharded_search(sidx, q, params, mesh, exact=exact)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[{label} sync] one sharded batch ran under sync debug mode "
+        f"'error': no host sync")
+
+
+def shard_phase(rt, tp, dev, smi, sift, sift_cpu):
+    """[sift shard]: the sift index sharded from its host copy onto S
+    shards of cuda:0 (S = 1, 2, 4), searched in both modes; the checks of
+    the module docstring. Returns the S = 4 sharded index, its mesh, its
+    heuristic run and the launch counts."""
+    qd, params, truth = sift["qd"], sift["params"], sift["truth"]
+    nb, topk = qd.shape[0], params.topk
+    xb = torch.from_numpy(sift["base"]).to(dev)
+    base_recall = sift["on"]["recall"]
+    counts = {}
+    kept = {}
+    for s, modes in ((1, (True,)), (2, (False, True)), (4, (False, True))):
+        label = f"sift shard S={s}"
+        mesh = tp.make_mesh(devices=[dev] * s)
+        sidx = shard_timed(tp, sift_cpu, mesh, label)
+        for exact in modes:
+            mode = "exact" if exact else "heuristic"
+            r = sharded_run(tp, sidx, mesh, qd, params, exact)
+            assert_shard_launches(r["counts"], s, nb, f"{label} {mode}")
+            for k, v in r["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            assert_exact_distances(xb, sift["flat_q"], r["ids"], r["dists"],
+                                   f"{label} {mode}")
+            rec = recall_of(r["ids"], truth)
+            if rec < MIN_RECALL:
+                raise AssertionError(f"[{label} {mode}] recall {rec:.4f}")
+            if exact and rec < base_recall - STORE_RECALL_SLACK:
+                raise AssertionError(
+                    f"[{label} exact] recall {rec:.4f} below the unsharded "
+                    f"{base_recall:.4f} - {STORE_RECALL_SLACK}")
+            extra = ""
+            if s == 1:
+                same = assert_near_reference(
+                    f"{label} exact", r["ids"].cpu().numpy(),
+                    r["dists"].cpu().numpy(),
+                    sift["on"]["ids"].cpu().numpy(),
+                    sift["on"]["dists"].cpu().numpy())
+                extra = (f"; ids equal to the unsharded run's on {same:.5f} "
+                         f"of slots (the rest near-ties)")
+            check_sharded_batch_sync(tp, sidx, mesh, qd[1], params, exact,
+                                     f"{label} {mode}")
+            prof = retry_lost_records(lambda: profile_sharded_batch(
+                tp, sidx, mesh, qd[1], params, exact, f"{label} {mode}",
+                smi), f"{label} {mode}")
+            lp = tp.sharding._local_params(params, s, sidx.k_max, exact)
+            log(f"[{label} {mode}] {nb}x{qd.shape[1]} queries probe "
+                f"{params.probe} rerank {params.rerank} topk {topk} (a shard: "
+                f"probe {lp.probe} rerank {lp.rerank}): recall@{topk} "
+                f"{rec:.4f} (unsharded {base_recall:.4f}), QPS "
+                f"{r['qps']:.1f}, device {r['device_ms']:.3f} ms/batch (CUDA "
+                f"events), host enqueue {r['enqueue_ms']:.3f} ms/batch, one "
+                f"profiled batch busy {prof['busy_ms']:.3f} ms (the card "
+                f"idle {100 * prof['idle']:.1f}% of it); "
+                f"launches {r['counts']} = {s} a kernel a batch{extra}. "
+                f"{s} shards on one card: S times the launches of one "
+                f"search, not a scaling figure [{smi}]")
+            if s == 4 and not exact:
+                kept = dict(sidx=sidx, mesh=mesh, run=r)
+        if torch.cuda.device_count() >= s > 1:
+            mesh_c = tp.make_mesh(s)
+            sidx_c = shard_timed(tp, sift_cpu, mesh_c, f"{label} a card each")
+            r = sharded_run(tp, sidx_c, mesh_c, qd, params, False)
+            assert_shard_launches(r["counts"], s, nb, f"{label} a card each")
+            log(f"[{label} a card each] recall@{topk} "
+                f"{recall_of(r['ids'].to(dev), truth):.4f}, QPS "
+                f"{r['qps']:.1f} [{smi}]")
+            del sidx_c
+        elif s > 1:
+            log(f"[{label} a card each] skipped: {torch.cuda.device_count()} "
+                f"card(s) visible, one shard a card needs {s}")
+        if s != 4:
+            del sidx
+        gc.collect()
+        torch.cuda.empty_cache()
+    del xb
+    kept["counts"] = counts
+    return kept
+
+
+def shard_store_phase(tp, dev, smi, sift, saved, shard):
+    """[sift shard store]: the saved base-less index sharded at S = 4, an
+    MmapStore over the saved base.fvecs and shard_global_positions."""
+    import rabitq_tpu_torch.store.vector_store as vs
+    from rabitq_tpu_torch.index.serialize import load_from_dir
+    from rabitq_tpu_torch.store import MmapStore
+
+    mesh, ref = shard["mesh"], shard["run"]
+    qd, params = sift["qd"], sift["params"]
+    nb = qd.shape[0]
+    lean = load_from_dir(saved, keep_base=False, device="cpu")
+    sidx = tp.shard_index(lean, mesh)
+    gpos = tp.shard_global_positions(lean, mesh.size)
+    store = MmapStore(saved / "base.fvecs")
+    copies = [0]
+    real = vs._to_host
+
+    def counted(*ts):
+        copies[0] += 1
+        return real(*ts)
+
+    tp.sharded_search_with_store(sidx, qd[0], params, mesh, store, gpos)
+    vs._to_host = counted
+    try:
+        copies[0] = 0
+        t0 = time.perf_counter()
+        out, counts = run_captured(lambda: [
+            tp.sharded_search_with_store(sidx, q, params, mesh, store, gpos)
+            for q in qd])
+        wall = time.perf_counter() - t0
+        n_copies = copies[0]
+        syncs = count_syncs(lambda: tp.sharded_search_with_store(
+            sidx, qd[1], params, mesh, store, gpos))
+    finally:
+        vs._to_host = real
+    assert_shard_launches(counts, mesh.size, nb, "sift shard store",
+                          gather=False)
+    if n_copies != nb:
+        raise AssertionError(f"[sift shard store] {n_copies} host copies for "
+                             f"{nb} batches on one device")
+    dists = np.concatenate([d for d, _ in out])
+    ids = np.concatenate([i for _, i in out])
+    same = assert_near_reference("sift shard store", ids, dists,
+                                 ref["ids"].cpu().numpy(),
+                                 ref["dists"].cpu().numpy())
+    rec = recall_of(torch.from_numpy(ids.astype(np.int64)).to(dev),
+                    sift["truth"])
+    log(f"[sift shard store] S={mesh.size} base-less shards on cuda:0, one "
+        f"MmapStore over the saved base.fvecs through "
+        f"shard_global_positions: {nb} batches, QPS {nb * qd.shape[1] / wall:.1f}, "
+        f"recall@{params.topk} {rec:.4f}; ids equal to sharded_search's on "
+        f"{same:.5f} of slots (the rest near-ties); {n_copies} copies to the "
+        f"host ({n_copies / nb:g} a batch, one device), {syncs} host syncs "
+        f"in one batch (sync debug 'warn'); launches {counts} [{smi}]")
+    del sidx, lean
+    return counts
+
+
+def shard_build_phase(tp, dev, smi, sift, shard):
+    """[sift shard build]: build_index_sharded at S = 4 with the sift
+    centroids and generator against shard_index(build_index(...)), bit for
+    bit."""
+    mesh, ref = shard["mesh"], shard["sidx"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = tp.build_index_sharded(
+        sift["base"], sift["centroids"], mesh, bits=4, spill=0.2,
+        balance=1.5, generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if (new.k_max, new.rows_max, new.tiles_max) != (
+            ref.k_max, ref.rows_max, ref.tiles_max):
+        raise AssertionError("[sift shard build] padded shapes differ")
+    for (si, a), (_, b) in zip(new.local(), ref.local()):
+        for f in ("codes", "factors", "offsets", "map_ids", "centroids_rot",
+                  "orthogonal", "rand_bias", "base"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"[sift shard build] shard {si} {f}")
+    log(f"[sift shard build] build_index_sharded S={mesh.size} on cuda:0: "
+        f"{secs:.2f}s; bit-equal (codes, factors, offsets, map_ids, "
+        f"centroids, rotation, dither, base) to shard_index(build_index()) "
+        f"of the sift path, whose build_index took {sift['build_s']:.2f}s "
+        f"[{smi}]")
+    del new
+
+
+def shard_ckpt_phase(tp, smi, sift, shard, work):
+    """[sift shard ckpt]: dump_index_sharded / load_index_sharded at S = 4;
+    the round trip bit-identical, the search equal. Returns the directory
+    and the launch counts."""
+    mesh, sidx, ref = shard["mesh"], shard["sidx"], shard["run"]
+    path = work / "shard_ckpt"
+    t0 = time.perf_counter()
+    tp.dump_index_sharded(sidx, path)
+    dump_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    loaded = tp.load_index_sharded(path, mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for (si, a), (_, b) in zip(loaded.local(), sidx.local()):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+                if x is None or y is None or not torch.equal(x, y):
+                    raise AssertionError(f"[sift shard ckpt] shard {si} "
+                                         f"{f.name}")
+            elif x != y:
+                raise AssertionError(f"[sift shard ckpt] shard {si} {f.name}")
+    r = sharded_run(tp, loaded, mesh, sift["qd"], sift["params"], False)
+    if not (torch.equal(r["ids"], ref["ids"])
+            and torch.equal(r["dists"], ref["dists"])):
+        raise AssertionError("[sift shard ckpt] search differs after the "
+                             "round trip")
+    log(f"[sift shard ckpt] dump_index_sharded S={mesh.size} {dump_s:.2f}s "
+        f"({nbytes / 1e9:.3f} GB), load_index_sharded onto cuda:0 "
+        f"{load_s:.2f}s; every shard bit-identical, sharded_search of the "
+        f"{r['ids'].shape[0]} queries equal in ids and distances [{smi}]")
+    del loaded
+    return path, r["counts"]
+
+
+def shard_service_phase(tp, dev, smi, sift, shard, ckpt):
+    """[sift shard service]: a mesh BatchingEngine on the S = 4 index
+    behind a ServiceHTTPServer in a thread: /query_bin_batch frames, single
+    /query_bin requests from threads, a 10% allowlist, /admin/reload of the
+    checkpoint under 8 querying threads. Returns the launch counts."""
+    import concurrent.futures as cf
+
+    from rabitq_tpu_torch.service import client
+    from rabitq_tpu_torch.service.server import (
+        BatchingEngine, ServiceHTTPServer, make_handler)
+
+    cfg = SERVICE
+    mesh, sidx = shard["mesh"], shard["sidx"]
+    probe, topk = SIFT["probe"], SIFT["topk"]
+    engine = BatchingEngine(sidx, mesh=mesh, max_batch=cfg["max_batch"],
+                            window_ms=cfg["window_ms"])
+    srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(
+        engine, default_probe=probe, default_topk=topk, allow_reload=True))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+
+    def post_json(path, payload):
+        return post_json_to(url, path, payload)
+
+    n_b, n_q = cfg["frames"] * cfg["frame"], cfg["bin"]
+    rows = sift["flat_q"][: n_b + n_q]
+    q_host = rows.cpu().numpy()
+    params = engine._make_params(topk, probe)
+    ref = [tp.sharded_search(sidx, rows[a : a + 256], params, mesh)
+           for a in range(0, rows.shape[0], 256)]
+    ref_d = torch.cat([d for d, _ in ref]).cpu().numpy()
+    ref_i = torch.cat([i for _, i in ref]).cpu().numpy()
+    try:
+        client.query_once_bin(url, q_host[0], topk, probe)  # untimed
+
+        def traffic():
+            ids = np.empty((rows.shape[0], topk), np.int64)
+            lat = {"bin_batch": [], "bin": []}
+            t0 = time.perf_counter()
+            for f in range(cfg["frames"]):
+                a = f * cfg["frame"]
+                i, _, dt = client.query_batch_bin(
+                    url, q_host[a : a + cfg["frame"]], topk, probe)
+                ids[a : a + cfg["frame"]] = i
+                lat["bin_batch"].append(dt)
+            wall = {"bin_batch": time.perf_counter() - t0}
+
+            def one(j):
+                got, _, dt = client.query_once_bin(url, q_host[n_b + j],
+                                                   topk, probe)
+                return j, got, dt
+
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(cfg["threads"]) as pool:
+                for j, got, dt in pool.map(one, range(n_q)):
+                    ids[n_b + j] = got
+                    lat["bin"].append(dt)
+            wall["bin"] = time.perf_counter() - t0
+            return ids, lat, wall
+
+        (ids, lat, wall), counts = run_captured(traffic)
+        calls = counts["rough_scan calls"]
+        if not (calls and calls % mesh.size == 0 and counts["quantize"]
+                == counts["rough_scan"] == counts["gather_l2"] == calls):
+            raise AssertionError(f"[sift shard service] launches {counts}")
+        dists = ((sift["base"][ids] - q_host[:, None, :]) ** 2).sum(-1)
+        same = assert_near_reference("sift shard service", ids, dists,
+                                     ref_i, ref_d)
+        rec = recall_of(torch.from_numpy(ids).to(dev),
+                        sift["truth"][: rows.shape[0]])
+        if rec < MIN_RECALL:
+            raise AssertionError(f"[sift shard service] recall {rec:.4f}")
+        log(f"[sift shard service] a mesh engine, S={mesh.size} on cuda:0 "
+            f"(max_batch {cfg['max_batch']}, window {cfg['window_ms']} ms, "
+            f"rerank {params.rerank}): /query_bin_batch {cfg['frames']} "
+            f"frames of {cfg['frame']} QPS {n_b / wall['bin_batch']:.1f} (a "
+            f"frame {percentiles(lat['bin_batch'])}); /query_bin {n_q} from "
+            f"{cfg['threads']} threads QPS {n_q / wall['bin']:.1f} "
+            f"({percentiles(lat['bin'])}); {calls // mesh.size} device "
+            f"calls, each launching quantize, rough_scan and gather_l2 once "
+            f"a shard; ids equal to sharded_search at the engine's params "
+            f"on {same:.5f} of slots (the rest near-ties); recall@{topk} "
+            f"{rec:.4f} [{smi}]")
+
+        n_ids = int(sift["index"].map_ids.max()) + 1
+        allow = np.random.default_rng(4).choice(n_ids, n_ids // 10,
+                                                replace=False)
+        st, body = post_json("/filters", dict(name="tenth",
+                                              allow_ids=allow.tolist()))
+        if st != 200:
+            raise AssertionError(f"[sift shard service filter] {st} {body}")
+        t0 = time.perf_counter()
+        st, body = post_json("/query", dict(
+            query=q_host[:256].tolist(), top_k=topk, probe=probe,
+            filter="tenth"))
+        f_s = time.perf_counter() - t0
+        got = np.concatenate([np.asarray(r, np.int64) for r in body["ids"]])
+        if st != 200 or got.size == 0 or not np.isin(got, allow).all():
+            raise AssertionError("[sift shard service filter] an id not "
+                                 "allowed, or none")
+        log(f"[sift shard service filter] a 10% allowlist ({allow.size} ids;"
+            f" each shard's penalty from its own map_ids); one JSON POST of "
+            f"256 rows with it {f_s * 1e3:.1f} ms: {got.size} ids, every one "
+            f"allowed")
+
+        st, body, reload_s, done = reload_under_load(
+            url, q_host[:n_b], topk, probe, cfg["reload_threads"], ckpt,
+            "sift shard service reload")
+        if st != 200 or engine.index is sidx:
+            raise AssertionError(f"[sift shard service reload] {st} {body}")
+        log(f"[sift shard service reload] POST /admin/reload of the sharded "
+            f"checkpoint took {reload_s:.2f}s while "
+            f"{cfg['reload_threads']} threads sent {done} /query_bin "
+            f"requests: none failed; {body} [{smi}]")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.close()
+    return counts
+
+
+def multihost_phase(smi):
+    """[multihost]: the two-process world on the card (gloo)."""
+    from rabitq_tpu_torch.tools import multihost_demo
+
+    t0 = time.perf_counter()
+    outs = multihost_demo.run(device="cuda", backend="gloo")
+    secs = time.perf_counter() - t0
+    if sum(o.count("PARITY OK") for o in outs) != multihost_demo.NPROC:
+        raise AssertionError(f"[multihost] {outs}")
+    log(f"[multihost] {multihost_demo.NPROC} processes, one torch.distributed "
+        f"world (backend gloo, chosen explicitly: NCCL needs one card a rank "
+        f"and both ranks share cuda:0 here), {multihost_demo.SHARDS} shards "
+        f"on cuda:0, 2 a process: every process PARITY OK against the "
+        f"one-process sharded search ({secs:.1f}s with both processes' "
+        f"start-up) [{smi}]")
+
+
+def dryrun_phase(dev, smi):
+    """[dryrun]: graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4).
+    Returns the launch counts."""
+    from rabitq_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    line, counts = run_captured(lambda: dryrun_multichip(4, devices=[dev] * 4))
+    log(f"[dryrun] {time.perf_counter() - t0:.1f}s: {line} [{smi}]")
+    return counts
+
+
+def kmeans_tree_phase(rt, dev, smi, sift):
+    """[kmeans tree]: hierarchical_kmeans(T=64, D=64) on the sift sample,
+    then the sift build and search with its centroids. Returns the launch
+    counts."""
+    from rabitq_tpu_torch.kmeans import hierarchical_kmeans
+
+    base = sift["base"]
+    rng = np.random.default_rng(1)
+    sample = base[rng.choice(base.shape[0], TRAIN_CAP, replace=False)]
+    t0 = time.perf_counter()
+    cents = hierarchical_kmeans(
+        sample, 64, 64, iters=KMEANS_ITERS, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    if tuple(cents.shape) != (K, base.shape[1]) or not torch.isfinite(
+            cents).all():
+        raise AssertionError(f"[kmeans tree] centroids {tuple(cents.shape)}")
+    t0 = time.perf_counter()
+    index = rt.build_index(
+        base, cents, bits=4, spill=0.2, balance=1.5, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = timed_search_many(rt, index, sift["qd"], sift["params"])
+    rec = recall_of(res["ids"], sift["truth"])
+    if rec < 0.90:
+        raise AssertionError(f"[kmeans tree] recall@10 {rec:.4f} < 0.90")
+    log(f"[kmeans tree] hierarchical_kmeans T=64 x D=64 on {TRAIN_CAP} rows "
+        f"({KMEANS_ITERS} iters): {tree_s:.2f}s (flat k-means k={K}: "
+        f"{sift['kmeans_s']:.2f}s); build_index {build_s:.2f}s (n "
+        f"{index.n}, k {index.k}, capacity {index.capacity}); search_many "
+        f"at the sift params: recall@10 {rec:.4f} (flat k-means "
+        f"{sift['on']['recall']:.4f}), QPS {res['qps']:.1f} [{smi}]")
+    del index
+    return res["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
               file=sys.stderr)
         return 1
     import rabitq_tpu_torch as rt
+    import rabitq_tpu_torch.parallel as tp
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -2777,6 +3325,26 @@ def main() -> int:
         cli_runs = cli_phase(dev, smi, sift, saved, work, MIN_RECALL)
         mutate = mutate_phase(rt, dev, smi, sift, work)
         path_counts["sift mutate"] = mutate["counts"]
+
+        # 14-17. The sift index sharded over S shards of the card; the
+        # two-process world; the dry run; hierarchical k-means.
+        t_shard = time.perf_counter()
+        shard = shard_phase(rt, tp, dev, smi, sift, cpu_copy(sift["index"]))
+        path_counts["sift shard"] = shard["counts"]
+        path_counts["sift shard store"] = shard_store_phase(
+            tp, dev, smi, sift, saved, shard)
+        shard_build_phase(tp, dev, smi, sift, shard)
+        ckpt, path_counts["sift shard ckpt"] = shard_ckpt_phase(
+            tp, smi, sift, shard, work)
+        path_counts["sift shard service"] = shard_service_phase(
+            tp, dev, smi, sift, shard, ckpt)
+        del shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        multihost_phase(smi)
+        path_counts["dryrun"] = dryrun_phase(dev, smi)
+        path_counts["kmeans tree"] = kmeans_tree_phase(rt, dev, smi, sift)
+        log(f"[shard] phases 14-17 took {time.perf_counter() - t_shard:.1f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del sift, sift_on["ids"], sift_on["dists"]

@@ -210,13 +210,19 @@ def cmd_build(args) -> None:
 
 def cmd_train(args) -> None:
     from rabitq_tpu_torch.io import read_matrix, write_matrix
-    from rabitq_tpu_torch.kmeans import kmeans
+    from rabitq_tpu_torch.kmeans import hierarchical_kmeans, kmeans
 
     log = logging.getLogger("rabitq_tpu_torch.cli")
     x = read_matrix(args.input)
     start = time.perf_counter()
-    c = kmeans(x, args.k, iters=args.iters, generator=_generator(args),
-               device=args.device)
+    if args.tree is not None:
+        t, d_sub = args.tree
+        c = hierarchical_kmeans(x, t, d_sub, iters=args.iters,
+                                generator=_generator(args),
+                                device=args.device)
+    else:
+        c = kmeans(x, args.k, iters=args.iters, generator=_generator(args),
+                   device=args.device)
     log.info("trained %d centroids in %.1fs", c.shape[0],
              time.perf_counter() - start)
     write_matrix(args.output, c.cpu().numpy())
@@ -354,8 +360,7 @@ def main(argv=None):
         type=int,
         nargs=2,
         metavar=("T", "D"),
-        help="refused: hierarchical k-means is not ported (ROADMAP queue 1 "
-        "item 9, hierarchical_kmeans)",
+        help="hierarchical: T top clusters x D sub-clusters",
     )
     p_train.add_argument("--iters", type=int, default=25)
     p_train.add_argument("--seed", type=int, default=0)
@@ -363,12 +368,8 @@ def main(argv=None):
     p_train.set_defaults(fn=cmd_train)
 
     args = ap.parse_args(argv)
-    if args.cmd == "train":
-        if args.tree is not None:
-            ap.error("--tree: hierarchical k-means is not ported (ROADMAP "
-                     "queue 1 item 9, hierarchical_kmeans)")
-        if args.k is None:
-            ap.error("train requires -k")
+    if args.cmd == "train" and args.k is None and args.tree is None:
+        ap.error("train requires -k or --tree T D")
     if args.cmd == "run":
         for flag, (_, _, why) in refused.items():
             if getattr(args, flag[2:].replace("-", "_")) not in (None, False):

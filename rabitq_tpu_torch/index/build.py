@@ -45,23 +45,59 @@ _MIN_NORMAL_F32 = np.float32(1.17549435e-38)
 _SCALE_GRID = (0.55, 0.65, 0.75, 0.85, 0.95, 1.05, 1.15, 1.25)
 
 
+def chunk_rows(n: int, chunk: int) -> int:
+    """Rows of every device step of a build of ``n`` rows: ``chunk``, or
+    fewer for a small corpus. Every step runs on exactly this many rows
+    (the last padded with zero rows), so each product and row reduction
+    has the same shape in every step: a row's codes and factors are then
+    the same bits wherever it lies in a step, which lets
+    parallel.build_index_sharded quantize each shard's rows on its own
+    device and still equal build_index bit for bit."""
+    return min(chunk, round_up(max(n, 1), 256))
+
+
+def _padded(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to ``rows``."""
+    if a.shape[0] == rows:
+        return a
+    pad = a.new_zeros((rows - a.shape[0],) + tuple(a.shape[1:]))
+    return torch.cat([a, pad])
+
+
 def _assign_top(
     x_all: torch.Tensor,
     orthogonal: torch.Tensor,
     centroids_rot: torch.Tensor,
     top: int,
     chunk: int,
-) -> tuple[np.ndarray, np.ndarray]:
+    exact_cdsq: bool = False,
+):
     """The ``top`` nearest rotated centroids of every row, best-first, in
-    fp32. Returns host (labels [n, top] int32, dists [n, top] f32)."""
+    fp32, in steps of ``chunk`` rows (chunk_rows). Returns host (labels
+    [n, top] int32, dists [n, top] f32), and with ``exact_cdsq`` also each
+    candidate's exact squared residual norm [n, top] f32, by
+    _build_chunk's own expression on the same shapes, so the values are
+    the bits the quantize pass computes for the row in that cluster."""
     top = min(top, centroids_rot.shape[0])
-    labs, dists = [], []
-    for a in range(0, x_all.shape[0], chunk):
-        d = pairwise_l2sq(rotate(x_all[a : a + chunk], orthogonal), centroids_rot)
+    n = x_all.shape[0]
+    labs, dists, cds = [], [], []
+    for a in range(0, n, chunk):
+        m = min(chunk, n - a)
+        y = rotate(_padded(x_all[a : a + chunk], chunk), orthogonal)
+        d = pairwise_l2sq(y, centroids_rot)
         v, i = torch.topk(d, top, dim=-1, largest=False, sorted=True)
-        labs.append(i.to(torch.int32))
-        dists.append(v)
-    return torch.cat(labs).cpu().numpy(), torch.cat(dists).cpu().numpy()
+        labs.append(i[:m].to(torch.int32))
+        dists.append(v[:m])
+        if exact_cdsq:
+            cols = []
+            for j in range(top):
+                r = y - centroids_rot[i[:, j]]
+                cols.append(torch.sum(r * r, dim=-1))
+            cds.append(torch.stack(cols, dim=-1)[:m])
+    out = (torch.cat(labs).cpu().numpy(), torch.cat(dists).cpu().numpy())
+    if exact_cdsq:
+        out += (torch.cat(cds).cpu().numpy(),)
+    return out
 
 
 def _quantize_grid(r: torch.Tensor, bits: int):
@@ -157,13 +193,19 @@ def _quantize_rows(
     bits: int,
     chunk: int,
 ):
-    """_build_chunk over every row of x in chunks; concatenated outputs."""
+    """_build_chunk over every row of x in steps of exactly ``chunk`` rows
+    (chunk_rows; the last padded with zero rows); concatenated outputs."""
+    n = x.shape[0]
     outs = [
-        _build_chunk(
-            x[a : a + chunk], labels[a : a + chunk], orthogonal,
-            centroids_rot, bits,
+        tuple(
+            t[: min(chunk, n - a)]
+            for t in _build_chunk(
+                _padded(x[a : a + chunk], chunk),
+                _padded(labels[a : a + chunk], chunk),
+                orthogonal, centroids_rot, bits,
+            )
         )
-        for a in range(0, x.shape[0], chunk)
+        for a in range(0, n, chunk)
     ]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
@@ -355,6 +397,94 @@ def _spill_admit(
     return pick[ok], admitted[ok].astype(np.int32), cap_unspilled
 
 
+def plan_assignment(
+    cand_labels: np.ndarray,
+    cand_dists: np.ndarray,
+    base: np.ndarray,
+    centroids: np.ndarray,
+    *,
+    k: int,
+    balance: float | None,
+    split: bool,
+    spill: float,
+    spill_mode: str,
+    spill_soar_lambda: float,
+):
+    """Every row's cluster (balanced when ``balance``, else its nearest)
+    and the admitted spill copies, from _assign_top's candidates. Returns
+    (labels [n] int32, pick [m] source rows, spill_tgt [m] target
+    clusters, cap_unspilled). Shared by build_index and
+    parallel.build_index_sharded."""
+    n = cand_labels.shape[0]
+    if balance:
+        cap = max(1, int(np.ceil(balance * n / k)))
+        labels = balance_assignments(cand_labels, cand_dists, k, cap)
+    else:
+        labels = cand_labels[:, 0].copy()
+    pick, spill_tgt, cap_unspilled = _spill_admit(
+        cand_labels, cand_dists, labels, base, centroids, k=k, spill=spill,
+        spill_mode=spill_mode, spill_soar_lambda=spill_soar_lambda,
+        balance=balance, split=split,
+    )
+    return labels, pick, spill_tgt, cap_unspilled
+
+
+def plan_layout(
+    labels: np.ndarray,
+    pick: np.ndarray,
+    spill_tgt: np.ndarray,
+    sort_key: torch.Tensor,
+    *,
+    k: int,
+    balance: float | None,
+    split: bool,
+    cap_unspilled: int | None,
+):
+    """The cluster layout of the rows and their spilled copies, shared by
+    build_index and parallel.build_index_sharded.
+
+    ``sort_key`` [n + m] is each row's and then each copy's squared
+    residual norm against its cluster; the sort runs where it lies. Rows
+    sort by cluster, then by the key (two stable sorts, the secondary key
+    first). Returns (labels_ext [n + m], orig_of [n + m] source rows,
+    order [n + m] on the key's device, offsets [k' + 1], capacity,
+    seg_src [k'] each segment's source cluster or None when no cluster
+    was split)."""
+    n = labels.shape[0]
+    orig_of = np.arange(n, dtype=np.int32)
+    if pick.size:
+        labels = np.concatenate([labels, spill_tgt])
+        orig_of = np.concatenate([orig_of, pick])
+    labels_key = torch.as_tensor(labels, device=sort_key.device).long()
+    by_key = torch.sort(sort_key, stable=True).indices
+    order = by_key[torch.sort(labels_key[by_key], stable=True).indices]
+    sizes = np.bincount(labels, minlength=k).astype(np.int32)
+    offsets = np.zeros(k + 1, dtype=np.int32)
+    np.cumsum(sizes, out=offsets[1:])
+    capacity = max(LANES, round_up(int(sizes.max(initial=1)), LANES))
+    seg_src = None
+    if balance and split:
+        # Hard capacity backstop where eviction balancing stalls.
+        if cap_unspilled is not None:
+            cap_target = cap_unspilled
+        else:
+            cap_target = max(
+                LANES,
+                round_up(int(np.ceil(balance * labels.shape[0] / k)), LANES),
+            )
+        if capacity > cap_target:
+            offsets, seg_src = split_oversized_clusters(offsets, cap_target)
+            new_sizes = offsets[1:] - offsets[:-1]
+            capacity = max(
+                LANES, round_up(int(new_sizes.max(initial=1)), LANES)
+            )
+            logger.info(
+                "build: split oversized clusters: k %d -> %d, capacity %d",
+                k, offsets.shape[0] - 1, capacity,
+            )
+    return labels, orig_of, order, offsets, capacity, seg_src
+
+
 def build_index(
     base,
     centroids,
@@ -393,7 +523,8 @@ def build_index(
                 rows in a second cluster ("dist": nearest other candidate
                 first; "soar": by the SOAR objective with
                 ``spill_soar_lambda``); the search then dedups ids.
-    chunk:      rows per device step (bounds the [chunk, k] distances).
+    chunk:      rows per device step (bounds the [chunk, k] distances;
+                chunk_rows).
     """
     if metric not in ("l2", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
@@ -433,38 +564,25 @@ def build_index(
         torch.as_tensor(pad_last_dim(centroids, dim), device=device), p
     )
     x_all = torch.as_tensor(pad_last_dim(base, dim), device=device)
+    chunk = chunk_rows(n, chunk)
 
-    # Pass 1: the top-M nearest centroids per row, then balancing.
+    # Pass 1: the top-M nearest centroids per row, then balancing and
+    # spill admission (host bookkeeping).
     top = 4 if (balance or spill > 0) else 1
     cand_labels, cand_dists = _assign_top(x_all, p, centroids_rot, top, chunk)
-    if balance:
-        cap = max(1, int(np.ceil(balance * n / k)))
-        labels = balance_assignments(cand_labels, cand_dists, k, cap)
-    else:
-        labels = cand_labels[:, 0].copy()
+    labels, pick, spill_tgt, cap_unspilled = plan_assignment(
+        cand_labels, cand_dists, base, centroids, k=k, balance=balance,
+        split=split, spill=spill, spill_mode=spill_mode,
+        spill_soar_lambda=spill_soar_lambda,
+    )
     t_assign = time.perf_counter()
 
-    # Pass 2: quantize against the final assignment.
+    # Pass 2: quantize against the final assignment, and the spilled
+    # copies (the most boundary-ambiguous rows) a second time against
+    # another centroid; the copies flow through the cluster sort.
     cdsq, codes, factors = _quantize_rows(
         x_all, torch.as_tensor(labels, device=device).long(), p,
         centroids_rot, bits, chunk,
-    )
-
-    # Spill: quantize the most boundary-ambiguous rows a second time
-    # against another centroid; the copies flow through the cluster sort.
-    orig_of = np.arange(n, dtype=np.int32)
-    pick, spill_tgt, cap_unspilled = _spill_admit(
-        cand_labels,
-        cand_dists,
-        labels,
-        base,
-        centroids,
-        k=k,
-        spill=spill,
-        spill_mode=spill_mode,
-        spill_soar_lambda=spill_soar_lambda,
-        balance=balance,
-        split=split,
     )
     if pick.size:
         pick_dev = torch.as_tensor(pick, device=device).long()
@@ -476,42 +594,18 @@ def build_index(
         cdsq, codes, factors = (
             torch.cat([a, b]) for a, b in zip((cdsq, codes, factors), sp)
         )
-        labels = np.concatenate([labels, spill_tgt])
-        orig_of = np.concatenate([orig_of, pick])
     t_quant = time.perf_counter()
 
-    # Cluster sort on the device: by cluster, then by centroid distance
-    # (two stable sorts, the secondary key first).
-    labels_dev = torch.as_tensor(labels, device=device).long()
-    by_dist = torch.sort(cdsq, stable=True).indices
-    order = by_dist[torch.sort(labels_dev[by_dist], stable=True).indices]
-    sizes = np.bincount(labels, minlength=k).astype(np.int32)
-    offsets = np.zeros(k + 1, dtype=np.int32)
-    np.cumsum(sizes, out=offsets[1:])
-    capacity = max(LANES, round_up(int(sizes.max(initial=1)), LANES))
-
-    if balance and split:
-        # Hard capacity backstop where eviction balancing stalls.
-        if cap_unspilled is not None:
-            cap_target = cap_unspilled
-        else:
-            cap_target = max(
-                LANES,
-                round_up(int(np.ceil(balance * labels.shape[0] / k)), LANES),
-            )
-        if capacity > cap_target:
-            offsets, seg_src = split_oversized_clusters(offsets, cap_target)
-            centroids_rot = centroids_rot[
-                torch.as_tensor(seg_src, device=device).long()
-            ]
-            new_sizes = offsets[1:] - offsets[:-1]
-            capacity = max(
-                LANES, round_up(int(new_sizes.max(initial=1)), LANES)
-            )
-            logger.info(
-                "build: split oversized clusters: k %d -> %d, capacity %d",
-                k, offsets.shape[0] - 1, capacity,
-            )
+    # Cluster sort on the device by (cluster, centroid distance), then the
+    # split of oversized clusters.
+    _, orig_of, order, offsets, capacity, seg_src = plan_layout(
+        labels, pick, spill_tgt, cdsq, k=k, balance=balance, split=split,
+        cap_unspilled=cap_unspilled,
+    )
+    if seg_src is not None:
+        centroids_rot = centroids_rot[
+            torch.as_tensor(seg_src, device=device).long()
+        ]
 
     map_ids = torch.as_tensor(orig_of, device=device)[order]
     # Spilled copies gather the same original row, so their rerank

@@ -1,5 +1,5 @@
 """IVF centroid training (port of rabitq_tpu.kmeans: kmeans and its
-k-means|| seeding).
+k-means|| seeding, hierarchical_kmeans and assign).
 
 Lloyd's algorithm over row chunks: one fp32 distance matmul per chunk, then
 per-cluster sums and counts by ``index_add_`` (which sums in an order that
@@ -158,3 +158,86 @@ def kmeans(
             break
         prev_cost = cost
     return centroids
+
+
+def hierarchical_kmeans(
+    x,
+    t: int,
+    d_sub: int,
+    *,
+    samples_per_centroid: int = 256,
+    iters: int = 25,
+    generator: torch.Generator | None = None,
+    chunk: int = 16384,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """Two-level k-means: ``t`` top clusters, ``d_sub`` sub-clusters each ->
+    [t * d_sub, d] float32 centroids on ``device``.
+
+    The JAX package's hierarchical_kmeans (the reference's
+    hierarchical_kmeans_with_sampling): the top level trains on a sample
+    of at most ``t * samples_per_centroid`` rows, every row is assigned to
+    its nearest top centroid, and each top cluster's members (sampled to
+    at most ``d_sub * samples_per_centroid``) train its sub-level. A top
+    cluster with no member contributes its centroid d_sub times, jittered
+    by 1e-4; one with fewer members than d_sub repeats its first
+    centroids. ``generator`` (default: seed 0 on ``device``) drives every
+    draw: the samples through a numpy generator seeded from it, and the
+    k-means runs in turn. ``device`` defaults as in ``kmeans``.
+    """
+    device = resolve_device(device, generator)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    x = np.asarray(
+        x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
+        dtype=np.float32,
+    )
+    n, d = x.shape
+    seed = torch.randint(
+        1 << 62, (1,), generator=generator, device=generator.device
+    )
+    rng = np.random.default_rng(int(seed))
+
+    cap_top = min(n, t * samples_per_centroid)
+    sample_idx = rng.choice(n, cap_top, replace=False)
+    top = kmeans(x[sample_idx], t, iters=iters, generator=generator,
+                 chunk=chunk, device=device)
+    labels = assign(x, top, chunk=chunk)
+    top_np = top.cpu().numpy()
+
+    out = []
+    for ti in range(top.shape[0]):
+        members = np.nonzero(labels == ti)[0]
+        if members.size == 0:
+            out.append(top_np[ti] + 1e-4 * rng.standard_normal(
+                (d_sub, d)).astype(np.float32))
+            continue
+        cap = min(members.size, d_sub * samples_per_centroid)
+        sub_idx = (members if members.size <= cap
+                   else rng.choice(members, cap, replace=False))
+        c = kmeans(x[sub_idx], d_sub, iters=iters, generator=generator,
+                   chunk=chunk, device=device).cpu().numpy()
+        if c.shape[0] < d_sub:
+            c = np.concatenate([c, c[np.zeros(d_sub - c.shape[0], int)]])
+        out.append(c)
+        logger.debug("hierarchical: sub-cluster %d/%d done", ti + 1, t)
+    return torch.as_tensor(np.concatenate(out).astype(np.float32),
+                           device=device)
+
+
+def assign(x, centroids, *, chunk: int = 4096) -> np.ndarray:
+    """Nearest-centroid labels [n] int32 (numpy) of every row of x, on the
+    centroids' device in chunks of ``chunk`` rows; ties go to the lower
+    centroid id. ``x`` is numpy or a tensor; ``centroids`` a tensor, or
+    numpy (then on the CPU)."""
+    c = torch.as_tensor(centroids, dtype=torch.float32)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x, dtype=np.float32)
+    labels = np.empty(x.shape[0], dtype=np.int32)
+    for a in range(0, x.shape[0], chunk):
+        xc = torch.from_numpy(x[a : a + chunk]).to(c.device)
+        labels[a : a + chunk] = (
+            pairwise_l2sq(xc, c).argmin(dim=-1).to(torch.int32).cpu().numpy()
+        )
+    return labels

@@ -1,7 +1,8 @@
-"""HTTP query service on one device (port of rabitq_tpu.service.server).
+"""HTTP query service (port of rabitq_tpu.service.server).
 
     python -m rabitq_tpu_torch.service.server --dir index_dir --port 9000 \\
-        [--store device|mmap|blockcache|http] [--device cuda]
+        [--store device|mmap|blockcache|http] [--device cuda] \\
+        [--shards N] [--sharded-exact]
 
 Endpoints: ``GET /``, ``/health``, ``/metrics``, ``/indexes`` and
 ``/filters``; ``POST /query`` with JSON ``{query, top_k, probe}`` (one row
@@ -29,10 +30,18 @@ never appear as results. Variable-length endpoints (JSON ``/query``,
 counted ``/query_bin``) return fewer entries; the fixed-stride
 ``/query_bin_batch`` frame marks them id ``0xFFFFFFFF`` / score ``+inf``.
 
-Not ported: serving one index sharded over several devices (``--shards``,
-``--sharded-exact``; ROADMAP queue 1 item 8) and the bf16 rerank
-(``--rerank-bf16``); ``--rerank-kernel`` is accepted and changes nothing,
-since the port always reranks with its gather_l2 kernel.
+Mesh serving: an engine given a ``mesh`` serves a sharded index
+(parallel/sharding.py): every batch runs sharded_search over the mesh, or
+sharded_search_with_store with a store and the global positions. ``main``
+boots a dump_index_sharded checkpoint directory directly, and ``--shards
+N`` shards a plain directory loaded on the CPU (so that no full copy ever
+sits on a card). The mesh is one shard per card (make_mesh, which raises
+on a host with fewer cards), or with ``--device cpu`` N entries of the
+CPU.
+
+Not ported: the bf16 rerank (``--rerank-bf16``); ``--rerank-kernel`` is
+accepted and changes nothing, since the port always reranks with its
+gather_l2 kernel.
 """
 
 from __future__ import annotations
@@ -56,8 +65,6 @@ from rabitq_tpu_torch.metrics import METRICS
 
 logger = logging.getLogger(__name__)
 
-_SHARDING = ("not ported: serving an index sharded over several devices "
-             "is ROADMAP queue 1 item 8")
 _BF16 = ("not ported: the bf16 rerank is on ROADMAP's do-not-port list "
          "(the port's rerank is always exact f32)")
 
@@ -86,7 +93,14 @@ MAX_RERANK = 8192
 class BatchingEngine:
     """Groups concurrent queries into single batched search calls, on the
     index's device (the in-memory tier) or, with a ``store``, through the
-    store tier (store/vector_store.py search_with_store)."""
+    store tier (store/vector_store.py search_with_store).
+
+    ``mesh`` serves a sharded index (shard_index, build_index_sharded,
+    load_index_sharded) over that mesh: sharded_search, or with a store
+    sharded_search_with_store, which needs ``global_pos``
+    (shard_global_positions, load_global_positions). ``sharded_exact``
+    selects the exact-mode budgets (recall at least the unsharded
+    index's, about S times the scan work)."""
 
     def __init__(
         self,
@@ -96,15 +110,22 @@ class BatchingEngine:
         max_batch: int = 64,
         window_ms: float = 2.0,
         default_rerank: int | None = None,
+        mesh=None,
+        global_pos=None,
+        sharded_exact: bool = False,
     ):
+        self._mesh = mesh
+        self._sharded_exact = sharded_exact
+        self._check_serves(index, store, global_pos)
         if default_rerank is None:
             # Multi-bit indexes rank candidates near-exactly, so the
             # default budget only covers fold/selection collisions; 1-bit
             # needs ~10x topk. The JAX service's defaults.
             default_rerank = 48 if index.code_bits >= 3 else 128
-        # (index, store, generation) live in ONE attribute so a concurrent
-        # swap_index can never be observed torn by the dispatcher.
-        self._istate = (index, store, 0)
+        # (index, store, generation, global positions) live in ONE
+        # attribute so a concurrent swap_index can never be observed torn
+        # by the dispatcher.
+        self._istate = (index, store, 0, global_pos)
         # Named row filters: specs live as original-id sets (independent
         # of the index's row order); built RowFilters are position-based
         # and cached per index generation, so swap_index invalidates
@@ -133,29 +154,66 @@ class BatchingEngine:
         return self._istate[1]
 
     @property
+    def mesh(self):
+        return self._mesh
+
+    @property
     def device(self) -> torch.device:
+        if self._mesh is not None:
+            return self._mesh.home
         return self.index.codes.device
 
     @property
     def n_rows(self) -> int:
-        """Indexed row count (spill copies included, like index.n)."""
+        """Indexed row count (spill copies included, like index.n). On a
+        mesh engine, the rows with an id over the shards, as the JAX
+        service counts them (tombstones excluded)."""
+        if self._mesh is not None:
+            return self.index.live_rows()
         return self.index.n
 
-    def swap_index(self, index, store=None) -> None:
+    def _check_serves(self, index, store, global_pos) -> None:
+        """ValueError unless this engine can serve ``index``: a plain
+        index, or for a mesh engine a sharded index on its mesh with a
+        base on the devices unless a store (and the global positions)
+        serves the rerank."""
+        from rabitq_tpu_torch.parallel import ShardedIndex
+
+        sharded = isinstance(index, ShardedIndex)
+        if self._mesh is None:
+            if sharded:
+                raise ValueError("a sharded index needs a mesh engine")
+            return
+        if not sharded or index.mesh != self._mesh:
+            raise ValueError("a mesh engine serves a sharded index on its "
+                             "mesh (shard_index, build_index_sharded, "
+                             "load_index_sharded)")
+        if store is None and not index.has_base:
+            raise ValueError("the sharded index has no base and no store "
+                             "serves its rerank")
+        if store is not None and global_pos is None:
+            raise ValueError("sharded store-tier serving needs global_pos "
+                             "(shard_global_positions, "
+                             "load_global_positions)")
+
+    def swap_index(self, index, store=None, global_pos=None) -> None:
         """Atomically replace the served index (online reindex: build or
         ``compact`` elsewhere, then swap — in-flight batches finish on
         the old index, later batches see the new one; no restart, no
         dropped requests). The store pairs with the index, so both move
-        in one assignment."""
+        in one assignment. A mesh engine takes a sharded index on its
+        mesh (with ``global_pos`` when store-tiered). Raises ValueError
+        when the engine cannot serve ``index``."""
         if index.dim_orig != self.index.dim_orig:
             raise ValueError(
                 "swap_index requires the query dim to stay fixed "
                 f"({index.dim_orig} != {self.index.dim_orig})"
             )
+        self._check_serves(index, store, global_pos)
         # The generation rides in the same tuple as the index so the
         # dispatcher's snapshot can never pair an index with another
         # generation's filter cache.
-        self._istate = (index, store, self._istate[2] + 1)
+        self._istate = (index, store, self._istate[2] + 1, global_pos)
         # Built filters are position-based; the new index's row order
         # differs. Specs survive and rebuild lazily on next use.
         self._filters_built.clear()
@@ -199,14 +257,15 @@ class BatchingEngine:
             return name in self._filters
 
     def _resolve_filter(self, name: str | None, index, gen: int):
-        """Name -> RowFilter on the index's device, built for this index
-        generation."""
+        """Name -> RowFilter on the index's device (one a shard on a mesh
+        engine), built for this index generation."""
         if name is None:
             return None
         from rabitq_tpu_torch.index.filter import (
             RowFilterContext,
             make_row_filter,
         )
+        from rabitq_tpu_torch.parallel import make_sharded_row_filter
 
         spec = self._filters.get(name)
         if spec is None:
@@ -215,16 +274,17 @@ class BatchingEngine:
         if built is not None and built[0] == gen:
             return built[1]
         mode, ids = spec
-        fctx = self._fctx
-        if fctx is None or fctx[0] != gen:
-            fctx = (gen, RowFilterContext(index))
-            self._fctx = fctx
-        rf = make_row_filter(
-            index,
-            allow_ids=ids if mode == "allow" else None,
-            deny_ids=ids if mode == "deny" else None,
-            ctx=fctx[1],
-        )
+        kw = dict(allow_ids=ids if mode == "allow" else None,
+                  deny_ids=ids if mode == "deny" else None)
+        if self._mesh is not None:
+            # Each local shard's penalty from its own map_ids.
+            rf = make_sharded_row_filter(index, self._mesh, **kw)
+        else:
+            fctx = self._fctx
+            if fctx is None or fctx[0] != gen:
+                fctx = (gen, RowFilterContext(index))
+                self._fctx = fctx
+            rf = make_row_filter(index, ctx=fctx[1], **kw)
         with self._flock:
             # Cache only while the spec we built from is still current: a
             # concurrent re-register must not be shadowed by a stale
@@ -246,6 +306,8 @@ class BatchingEngine:
         if rerank is not None and rerank <= 0:
             raise ValueError("rerank must be positive")
         top_k = min(int(top_k), MAX_TOPK)
+        # A sharded index's k counts every shard's k_max slots, a bound on
+        # its clusters (sharded_search caps the probe a shard anyway).
         probe = min(int(probe), MAX_PROBE, self.index.k)
         rerank = (
             # 1.5x topk is the measured budget floor at large topk;
@@ -352,19 +414,37 @@ class BatchingEngine:
     def _run_group(self, params: SearchParams, reqs: list[_Request]) -> None:
         from rabitq_tpu_torch.index.search import search_with_stats
         from rabitq_tpu_torch.metrics import record_search_stats
+        from rabitq_tpu_torch.parallel import (
+            sharded_search,
+            sharded_search_with_store,
+        )
         from rabitq_tpu_torch.store import search_with_store
 
         try:
             # One snapshot per group: a concurrent swap_index must not
             # split a batch across two indexes (or pair a store with
-            # another index; the filter-cache generation rides along).
-            index, store, gen = self._istate
+            # another index; the filter-cache generation and the global
+            # positions ride along).
+            index, store, gen, gpos = self._istate
             row_filter = self._resolve_filter(
                 reqs[0].filter_name, index, gen
             )
             q = np.concatenate([r.query for r in reqs])
             b = q.shape[0]
-            if store is not None:
+            mesh = self._mesh
+            if mesh is not None and store is not None:
+                scores, ids = sharded_search_with_store(
+                    index, q, params, mesh, store, gpos,
+                    exact=self._sharded_exact, row_filter=row_filter,
+                )
+            elif mesh is not None:
+                scores, ids = sharded_search(
+                    index, q, params, mesh, exact=self._sharded_exact,
+                    row_filter=row_filter,
+                )
+                scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+                METRICS.add_query_count(b)
+            elif store is not None:
                 scores, ids = search_with_store(
                     index, q, params, store, row_filter=row_filter,
                 )
@@ -483,7 +563,7 @@ def make_handler(
                         n=int(eng.n_rows),
                         dim=int(eng.index.dim_orig),
                         code_bits=int(eng.index.code_bits),
-                        shards=1,
+                        shards=1 if eng.mesh is None else eng.mesh.size,
                     )
                     for name, eng in registry.items()
                 })
@@ -528,10 +608,16 @@ def make_handler(
         def _admin_reload(self):
             """POST /admin/reload {"dir": path[, "index": name]} — load a
             freshly built or compacted index directory onto the engine's
-            device and swap it in without dropping requests
-            (engine.swap_index). Gated behind --allow-reload: it reads
-            server-side paths."""
+            device (a mesh engine: a dump_index_sharded checkpoint onto
+            its mesh) and swap it in without dropping requests
+            (engine.swap_index). A directory the engine cannot serve (the
+            other kind, another shard count, no base) answers 400. Gated
+            behind --allow-reload: it reads server-side paths."""
             from rabitq_tpu_torch.index.serialize import load_from_dir
+            from rabitq_tpu_torch.parallel import load_index_sharded
+            from rabitq_tpu_torch.parallel.checkpoint import (
+                is_sharded_checkpoint,
+            )
 
             try:
                 length = int(self.headers.get("Content-Length", 0))
@@ -550,9 +636,17 @@ def make_handler(
                     self._send_json(409, dict(
                         error="reload unsupported on store-tier engines"))
                     return
-                eng.swap_index(
-                    load_from_dir(payload["dir"], device=eng.device)
-                )
+                path = payload["dir"]
+                if is_sharded_checkpoint(path) != (eng.mesh is not None):
+                    raise ValueError(
+                        f"{path} is {'' if eng.mesh is None else 'not '}a "
+                        "sharded checkpoint; this engine serves "
+                        f"{'one' if eng.mesh is not None else 'no'} mesh")
+                if eng.mesh is not None:
+                    new_index = load_index_sharded(path, eng.mesh)
+                else:
+                    new_index = load_from_dir(path, device=eng.device)
+                eng.swap_index(new_index)
                 self._send_json(200, dict(ok=True, n=int(eng.n_rows)))
             except (KeyError, ValueError, json.JSONDecodeError) as e:
                 self._send_json(400, dict(error=str(e)))
@@ -712,14 +806,19 @@ def serve(
     extra_indexes: dict[str, object] | None = None,
     default_name: str = "default",
     allow_reload: bool = False,
+    mesh=None,
+    global_pos=None,
+    sharded_exact: bool = False,
 ):
-    """Serve one default index (optionally store-tiered) plus any number
-    of named extras on their own devices (multi-index routing: POST
-    /index/<name>/query..., the JSON "index" field, GET /indexes). Warms
-    every engine with one query at the default params before accepting
-    traffic, and shuts down on SIGINT or SIGTERM."""
+    """Serve one default index (optionally store-tiered, optionally
+    sharded over ``mesh``) plus any number of named extras on their own
+    devices (multi-index routing: POST /index/<name>/query..., the JSON
+    "index" field, GET /indexes). Warms every engine with one query at
+    the default params before accepting traffic, and shuts down on SIGINT
+    or SIGTERM."""
     engine = BatchingEngine(
-        index, store, max_batch=max_batch, window_ms=window_ms
+        index, store, max_batch=max_batch, window_ms=window_ms, mesh=mesh,
+        global_pos=global_pos, sharded_exact=sharded_exact,
     )
     engines = {default_name: engine}
     for name, idx in (extra_indexes or {}).items():
@@ -813,10 +912,19 @@ def main(argv=None):
     )
     ap.add_argument("--cache-db", default=None, help="sqlite block cache path")
     ap.add_argument(
-        "--shards", type=int, default=0, help=f"refused: {_SHARDING}"
+        "--shards",
+        type=int,
+        default=0,
+        help="serve the index sharded over N devices: one shard per card "
+        "(fails on a host with fewer), or with --device cpu N entries of "
+        "the CPU; a dump_index_sharded checkpoint boots sharded without it",
     )
     ap.add_argument(
-        "--sharded-exact", action="store_true", help=f"refused: {_SHARDING}"
+        "--sharded-exact",
+        action="store_true",
+        help="exact-mode shard budgets: every shard probes min(probe, "
+        "k_max) clusters with the full rerank (recall at least the "
+        "unsharded index's, about S times the scan work)",
     )
     ap.add_argument(
         "--allow-reload",
@@ -844,14 +952,18 @@ def main(argv=None):
         "card, never falls back to the CPU)",
     )
     args = ap.parse_args(argv)
-    if args.shards:
-        ap.error(f"--shards: {_SHARDING}")
-    if args.sharded_exact:
-        ap.error(f"--sharded-exact: {_SHARDING}")
     if args.rerank_bf16:
         ap.error(f"--rerank-bf16: {_BF16}")
 
     from rabitq_tpu_torch.index.serialize import load_from_dir
+    from rabitq_tpu_torch.parallel import (
+        load_global_positions,
+        load_index_sharded,
+        make_mesh,
+        shard_global_positions,
+        shard_index,
+    )
+    from rabitq_tpu_torch.parallel.checkpoint import is_sharded_checkpoint
     from rabitq_tpu_torch.store import (
         BlockCachedStore,
         FileBlockSource,
@@ -884,12 +996,49 @@ def main(argv=None):
         extra_specs[name] = path
     if args.store == "http" and not args.url_prefix:
         ap.error("--store http requires --url-prefix")
-    if args.url_prefix:
+    keep_base = args.store == "device"
+    sharded_ckpt = is_sharded_checkpoint(default_dir)
+    if sharded_ckpt and args.store in ("mmap", "blockcache"):
+        # A sharded checkpoint has per-shard directories and no global
+        # base: the store would read a file that never exists there.
+        ap.error(
+            f"--store {args.store} on a sharded checkpoint would read "
+            f"{Path(default_dir) / 'base.fvecs'}, the global cluster-sorted "
+            "base, which dump_index_sharded never writes: serve it with "
+            "--store device, or --store http with --url-prefix holding "
+            "that global base.fvecs")
+    if args.url_prefix and not sharded_ckpt:
         download_meta(args.url_prefix, default_dir, headers=store_headers)
 
-    index = load_from_dir(
-        default_dir, keep_base=args.store == "device", device=args.device
-    )
+    def mesh_of(n):
+        # One shard per card (raising on a host with fewer), or CPU entries.
+        if torch.device(args.device).type == "cpu":
+            return make_mesh(devices=["cpu"] * n)
+        return make_mesh(n)
+
+    mesh = global_pos = None
+    if sharded_ckpt:
+        n_sh = json.loads((Path(default_dir) / "meta.json").read_text())[
+            "shards"]
+        if args.shards and args.shards != n_sh:
+            ap.error(f"the checkpoint has {n_sh} shards, --shards "
+                     f"{args.shards} (re-shard offline)")
+        mesh = mesh_of(n_sh)
+        index = load_index_sharded(default_dir, mesh, keep_base=keep_base)
+        global_pos = load_global_positions(default_dir)
+    elif args.shards:
+        # Shard from a CPU-loaded index: only the shards reach the cards.
+        mesh = mesh_of(args.shards)
+        cpu_index = load_from_dir(default_dir, keep_base=keep_base,
+                                  device="cpu")
+        if not keep_base:
+            global_pos = shard_global_positions(cpu_index, args.shards)
+        index = shard_index(cpu_index, mesh)
+        del cpu_index
+    else:
+        index = load_from_dir(
+            default_dir, keep_base=keep_base, device=args.device
+        )
     extra_indexes = {
         name: load_from_dir(path, device=args.device)
         for name, path in extra_specs.items()
@@ -923,6 +1072,9 @@ def main(argv=None):
         extra_indexes=extra_indexes,
         default_name=default_name,
         allow_reload=args.allow_reload,
+        mesh=mesh,
+        global_pos=global_pos,
+        sharded_exact=args.sharded_exact,
     )
 
 

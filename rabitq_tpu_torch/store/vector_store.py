@@ -570,18 +570,37 @@ def search_with_store(
     METRICS.add_precise_count(int(finite.sum()))
     METRICS.add_rough_count(int(n_scanned))
 
-    if has_mem:
-        ex_base, ex_ids = rest[0], rest[1]
+    METRICS.add_query_count(b)
+    return merge_exact(exact, cand_ids, qpad, rest if has_mem else None,
+                       index.dedup_ids, params.topk)
+
+
+def merge_exact(
+    exact: np.ndarray,
+    cand_ids: np.ndarray,
+    qpad: np.ndarray,
+    memtable,
+    dedup: bool,
+    topk: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The store tier's host merge of [B, W] exact candidate distances and
+    their ids, as the JAX package's: the memtable joins once (``memtable``
+    = (extra_base, extra_ids[, the filter's memtable penalty]) or None;
+    deleted rows +inf), a spilled index keeps each id's best candidate,
+    then the top-k (ids -1 where the distance is not finite). Returns
+    (dists f32 [B, topk], ids int32 [B, topk])."""
+    if memtable:
+        ex_base, ex_ids = memtable[0], memtable[1]
         ex_d = _sq_dist_chunked(qpad, ex_base)
         ex_d = np.where(ex_ids[None, :] >= 0, ex_d, np.inf)
-        if extra_pen is not None:
-            ex_d = ex_d + rest[2][None, :]
+        if len(memtable) > 2:
+            ex_d = ex_d + memtable[2][None, :]
         exact = np.concatenate([exact, ex_d], axis=1)
         cand_ids = np.concatenate(
             [cand_ids, np.broadcast_to(ex_ids[None, :], ex_d.shape)], axis=1
         )
 
-    if index.dedup_ids:
+    if dedup:
         # Spilled builds index an id twice. Keep each id's best candidate:
         # stable-sort by distance, then by id ((id, distance)
         # lexicographic), and suppress all but the first of each id run.
@@ -593,9 +612,8 @@ def search_with_store(
         cand_ids = np.take_along_axis(cand_ids, o2, axis=1)
         dup = cand_ids[:, 1:] == cand_ids[:, :-1]
         exact[:, 1:][dup] = np.inf
-    sel = np.argsort(exact, axis=1)[:, : params.topk]
+    sel = np.argsort(exact, axis=1)[:, :topk]
     dists = np.take_along_axis(exact, sel, axis=1)
     ids = np.take_along_axis(cand_ids, sel, axis=1)
     ids = np.where(np.isfinite(dists), ids, -1)
-    METRICS.add_query_count(b)
     return dists.astype(np.float32), ids.astype(np.int32)

@@ -10,7 +10,8 @@ the host rerankers (``--rerank-mode heap|heuristic``) too. The port's
 recall. ``--adaptive``, ``--probe-rank annulus`` and ``--autotune`` report
 the JAX CLI's recall (the autotune one on an unspilled index: on a spilled
 one the JAX ground truth can name an id twice, ROADMAP queue 3). Flags of
-features the port lacks exit 2 with their ROADMAP item.
+features on the do-not-port list exit 2; ``train --tree`` trains a
+hierarchical k-means.
 """
 
 import logging
@@ -152,12 +153,21 @@ def test_run_refuses_unported_flags(files, capsys, extra, message):
     assert message in capsys.readouterr().err
 
 
-def test_train_refuses_tree_and_cuda_without_card(files, tmp_path, capsys):
+def test_train_tree_and_cuda_without_card(files, tmp_path, capsys):
+    """train --tree T D writes T * D finite centroids (hierarchical
+    k-means); train without -k or --tree exits 2; -k without a card
+    raises."""
+    out = tmp_path / "tree.fvecs"
+    port_main(["train", "-i", str(files["base"]), "-o", str(out), "--tree",
+               "2", "4", "--iters", "5", "--device", "cpu"])
+    c = read_matrix(out)
+    assert c.shape == (8, read_matrix(files["base"]).shape[1])
+    assert np.isfinite(c).all()
     with pytest.raises(SystemExit) as e:
-        port_main(["train", "-i", str(files["base"]), "-o",
-                   str(tmp_path / "c.fvecs"), "--tree", "2", "4"])
-    assert e.value.code != 0
-    assert "queue 1 item 9" in capsys.readouterr().err
+        port_main(["train", "-i", str(files["base"]), "-o", str(out),
+                   "--device", "cpu"])
+    assert e.value.code == 2
+    assert "-k or --tree" in capsys.readouterr().err
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):

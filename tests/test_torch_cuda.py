@@ -294,10 +294,7 @@ def test_gpu_search_matches_cpu_search(dev, select_reduce):
         base, centers, bits=4, spill=0.2, balance=1.5, device=dev,
         generator=torch.Generator(device=dev).manual_seed(0),
     )
-    cpu_idx = dataclasses.replace(idx, **{
-        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
-        if isinstance(getattr(idx, f.name), torch.Tensor)
-    })
+    cpu_idx = _cpu_copy(idx)
     assert effective_fold(idx.capacity, 2) == 2
     params = rt.SearchParams(probe=6, topk=10, rerank=32,
                              select_reduce=select_reduce)
@@ -646,10 +643,7 @@ def test_search_at_1024d_runs_quantize_and_qpack_once(dev, tmp_path):
     torch.cuda.synchronize()
     assert (cuda_quantize_residuals.launches, cuda_rough_scan.launches,
             cuda_rough_scan.launches_qpack) == tuple(x + 1 for x in before)
-    cpu_idx = dataclasses.replace(idx, **{
-        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
-        if isinstance(getattr(idx, f.name), torch.Tensor)
-    })
+    cpu_idx = _cpu_copy(idx)
     d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
     same = i_gpu.cpu() == i_cpu
     assert same.float().mean() >= 0.98
@@ -703,10 +697,7 @@ def test_filtered_mutated_adaptive_search_on_card(dev):
     fresh = rng.standard_normal((50, 128)).astype(np.float32)
     idx = rt.delete(rt.insert(idx, fresh), np.arange(0, 6000, 7))
     rf = rt.make_row_filter(idx, allow_ids=np.arange(0, 6050, 2))
-    cpu_idx = dataclasses.replace(idx, **{
-        f.name: getattr(idx, f.name).cpu() for f in dataclasses.fields(idx)
-        if isinstance(getattr(idx, f.name), torch.Tensor)
-    })
+    cpu_idx = _cpu_copy(idx)
     cpu_rf = rt.RowFilter(rf.penalty.cpu(), rf.extra_penalty.cpu())
     queries = torch.from_numpy(np.concatenate([base[:24], fresh[:8]]) + 0.01)
     params = rt.SearchParams(probe=6, topk=10, rerank=64)
@@ -759,10 +750,7 @@ def test_search_with_store_on_card_equals_cpu(dev, tmp_path):
     params = rt.SearchParams(probe=6, topk=10, rerank=48)
     fresh = rng.standard_normal((30, 128)).astype(np.float32)
     mut = rt.delete(rt.insert(idx, fresh), np.arange(0, 6000, 9))
-    mut_cpu = dataclasses.replace(mut, **{
-        f.name: getattr(mut, f.name).cpu() for f in dataclasses.fields(mut)
-        if isinstance(getattr(mut, f.name), torch.Tensor)
-    })
+    mut_cpu = _cpu_copy(mut)
     allow = np.arange(0, 6030, 2)
     cases = [
         (lean, lean_cpu, DeviceStore(idx.base), DeviceStore(idx.base.cpu()),
@@ -788,3 +776,137 @@ def test_search_with_store_on_card_equals_cpu(dev, tmp_path):
         np.testing.assert_array_equal(d_g[same], d_c[same])
         if gf is not None:
             assert np.isin(i_g[i_g >= 0], allow).all()
+
+
+def _cpu_copy(index):
+    return dataclasses.replace(index, **{
+        f.name: getattr(index, f.name).cpu() for f in dataclasses.fields(index)
+        if isinstance(getattr(index, f.name), torch.Tensor)
+    })
+
+
+def _sharded_corpus(seed, n=8000, k=32):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, k, n)]
+            + 0.3 * rng.standard_normal((n, 128))).astype(np.float32)
+    return rng, base, centers
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_sharded_search_on_card_equals_cpu(dev, exact):
+    """sharded_search over 4 shards on cuda:0 (and one shard a card where
+    the host has 4) against the same shards on the CPU: each search kernel
+    launches once a shard a batch, the ids are the CPU path's but at
+    near-ties, a filtered batch keeps only allowed ids, and a batch makes
+    no host sync."""
+    from rabitq_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_row_filter,
+        shard_index,
+        sharded_search,
+    )
+
+    rng, base, centers = _sharded_corpus(4)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    idx = rt.insert(idx, rng.standard_normal((20, 128)).astype(np.float32))
+    cpu_idx = _cpu_copy(idx)
+    meshes = [make_mesh(devices=[dev] * 4)]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(make_mesh(4))
+    cpu_mesh = make_mesh(devices=["cpu"] * 4)
+    cpu_s = shard_index(cpu_idx, cpu_mesh)
+    queries = torch.from_numpy(base[:48] + np.float32(0.01))
+    params = rt.SearchParams(probe=8, topk=10, rerank=48)
+    allow = np.arange(0, 8020, 3)
+    counters = (cuda_quantize_residuals, cuda_rough_scan, cuda_gather_l2)
+    d_c, i_c = sharded_search(cpu_s, queries, params, cpu_mesh, exact=exact)
+    for mesh in meshes:
+        sidx = shard_index(cpu_idx, mesh)
+        q = queries.to(mesh.home)
+        before = [c.launches for c in counters]
+        d_g, i_g = sharded_search(sidx, q, params, mesh, exact=exact)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [4] * 3
+        same = i_g.cpu() == i_c
+        assert same.float().mean() >= 0.98
+        atol = 1e-5 * float((queries * queries).sum(1).max())
+        torch.testing.assert_close(d_g.cpu()[same], d_c[same], rtol=1e-5,
+                                   atol=atol)
+        rf = make_sharded_row_filter(sidx, mesh, allow_ids=allow)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, i_f = sharded_search(sidx, q, params, mesh, exact=exact,
+                                    row_filter=rf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        i_f = i_f.cpu()
+        assert np.isin(i_f[i_f >= 0].numpy(), allow).all()
+
+
+def test_sharded_store_tier_on_card_equals_cpu(dev, tmp_path):
+    """sharded_search_with_store over 4 base-less shards on cuda:0 and one
+    mmap store: quantize and rough_scan launch once a shard, gather_l2
+    never, and the result equals the CPU shards' but at near-ties, equal
+    ids carrying equal distances (the same numpy sums)."""
+    from rabitq_tpu_torch.index.serialize import dump_to_dir
+    from rabitq_tpu_torch.parallel import (
+        make_mesh,
+        shard_global_positions,
+        shard_index,
+        sharded_search_with_store,
+    )
+    from rabitq_tpu_torch.store import MmapStore
+
+    _, base, centers = _sharded_corpus(5)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    dump_to_dir(idx, tmp_path)
+    lean = dataclasses.replace(_cpu_copy(idx), base=None)
+    gpos = shard_global_positions(lean, 4)
+    store = MmapStore(tmp_path / "base.fvecs")
+    params = rt.SearchParams(probe=8, topk=10, rerank=48)
+    queries = base[:40] + np.float32(0.01)
+    out = {}
+    counters = (cuda_quantize_residuals, cuda_rough_scan, cuda_gather_l2)
+    for name, devs in (("card", [dev] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh(devices=devs)
+        before = [c.launches for c in counters]
+        out[name] = sharded_search_with_store(
+            shard_index(lean, mesh), queries, params, mesh, store, gpos)
+        if name == "card":
+            assert [c.launches - b for c, b in zip(counters, before)] == [
+                4, 4, 0]
+    (d_g, i_g), (d_c, i_c) = out["card"], out["cpu"]
+    same = i_g == i_c
+    assert same.mean() >= 0.98
+    np.testing.assert_array_equal(d_g[same], d_c[same])
+
+
+def test_build_index_sharded_on_card_is_bit_equal(dev):
+    """build_index_sharded over 4 shards on cuda:0 equals
+    shard_index(build_index(...)) bit for bit on the card: every build
+    step has the same shape (chunk_rows), so a row's codes and factors do
+    not depend on which rows share its step."""
+    from rabitq_tpu_torch.parallel import (
+        build_index_sharded,
+        make_mesh,
+        shard_index,
+    )
+
+    _, base, centers = _sharded_corpus(6, n=40000, k=64)
+    mesh = make_mesh(devices=[dev] * 4)
+    kw = dict(bits=4, spill=0.2, balance=1.5, chunk=16384)
+    ref = shard_index(rt.build_index(
+        base, centers, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1), **kw), mesh)
+    new = build_index_sharded(
+        base, centers, mesh,
+        generator=torch.Generator(device=dev).manual_seed(1), **kw)
+    assert (new.k_max, new.rows_max, new.tiles_max) == (
+        ref.k_max, ref.rows_max, ref.tiles_max)
+    for (si, a), (_, b) in zip(new.local(), ref.local()):
+        for f in ("codes", "factors", "offsets", "map_ids", "centroids_rot",
+                  "base"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (si, f)

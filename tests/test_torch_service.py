@@ -9,10 +9,15 @@ per-request rerank, named filters, multi-index routing, reload gating, a
 reload, and a store-backed engine (409 on reload). The status codes and
 the shapes of the responses must be equal, and every id the port's server
 returns must equal the port's in-process ``search`` of the same rows at
-the engine's params. ``main`` refuses the sharding and bf16 flags, and
-serves a saved directory through the block cache until SIGTERM.
+the engine's params. Mesh engines of both packages (8 shards) answer the
+same requests, reload a sharded checkpoint, and the port's refuses with a
+400 what it cannot serve. ``main`` refuses the bf16 flag, serves a saved
+directory through the block cache until SIGTERM, boots a sharded
+checkpoint and ``--shards 2`` over CPU entries, shards from a CPU-loaded
+index, and exits 2 on a sharded checkpoint with a local store.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -33,7 +38,9 @@ import pytest
 import torch
 
 import rabitq_tpu as rq
+import rabitq_tpu.parallel as jp
 import rabitq_tpu_torch as rt
+import rabitq_tpu_torch.parallel as tp
 from conftest import make_clustered_dataset
 from rabitq_tpu.index import serialize as jser
 from rabitq_tpu.service import server as jserver
@@ -386,14 +393,242 @@ def test_service_server_queues_32_connections_made_at_once():
         eng.close()
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--sharded-exact"],
-                                  ["--rerank-bf16"]])
+@pytest.mark.parametrize("flag", [["--rerank-bf16"]])
 def test_main_refuses_unported_flags(flag, tmp_path, capsys):
     with pytest.raises(SystemExit) as ei:
         tserver.main(["--dir", str(tmp_path), "--device", "cpu", *flag])
     assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert ("ROADMAP queue 1 item 8" in err) == (flag[0] != "--rerank-bf16")
+    assert "do-not-port" in capsys.readouterr().err
+
+
+def _mesh_servers(jidx, tidx, jmesh, tmesh):
+    """A reload-enabled mesh engine of each package over its sharded copy
+    of the same index, exact mode, behind its own handler."""
+    made = {}
+    for name, mod, sidx, mesh in (
+        ("jax", jserver, jp.shard_index(jidx, jmesh), jmesh),
+        ("port", tserver, tp.shard_index(tidx, tmesh), tmesh),
+    ):
+        eng = mod.BatchingEngine(sidx, mesh=mesh, sharded_exact=True,
+                                 max_batch=16, window_ms=2.0)
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), mod.make_handler(
+            eng, default_probe=8, default_topk=5, engines={"main": eng},
+            allow_reload=True))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        made[name] = (srv, eng, f"http://127.0.0.1:{srv.server_port}")
+    return made
+
+
+def test_mesh_engine_matches_jax(tmp_path):
+    """Mesh engines of both packages (8 shards; the port's on CPU entries)
+    answer the same requests with the same statuses and shapes: queries
+    by each protocol, a named filter, /indexes with the shard count, and
+    a reload of a sharded checkpoint (written by the JAX package, loaded
+    by both). The port's ids equal its in-process sharded_search at the
+    engine's params."""
+    rng = np.random.default_rng(41)
+    base, centers = make_clustered_dataset(rng, n=1200, dim=32, k=16)
+    jidx = rq.build_index(base, centers, key=jax.random.key(4), spill=0.1)
+    jmesh, tmesh = jp.make_mesh(8), tp.make_mesh(devices=["cpu"] * 8)
+    base2 = base + 5.0
+    jidx2 = rq.build_index(base2, centers + 5.0, key=jax.random.key(5))
+    jp.dump_index_sharded(jp.shard_index(jidx2, jmesh), tmp_path / "v2")
+    made = _mesh_servers(jidx, port_index_from_jax(jidx), jmesh, tmesh)
+    allow = list(range(0, 1200, 4))
+    runs = {}
+    try:
+        for name, (_, _, url) in made.items():
+            runs[name] = [
+                call(url, "/query", dict(query=base[7].tolist(), top_k=5)),
+                call(url, "/query_bin_batch", np.array(
+                    [5, 8, 32, 16], np.uint32).tobytes() + base[:16].tobytes(),
+                    "application/octet-stream"),
+                call(url, "/filters", dict(name="quarter", allow_ids=allow)),
+                call(url, "/query", dict(query=base[9].tolist(), top_k=5,
+                                         filter="quarter")),
+                call(url, "/indexes"),
+                call(url, "/admin/reload", dict(dir=str(tmp_path / "v2"))),
+                call(url, "/query", dict(query=base2[11].tolist(), top_k=5)),
+            ]
+        eng = made["port"][1]
+        params = eng._make_params(5, 8)
+        q = torch.from_numpy(base[:16])
+        _, want = tp.sharded_search(tp.shard_index(
+            port_index_from_jax(jidx), tmesh), q, params, tmesh, exact=True)
+    finally:
+        for srv, e, _ in made.values():
+            srv.shutdown()
+            srv.server_close()
+            e.close()
+    for j, t in zip(runs["jax"], runs["port"]):
+        assert describe(*t) == describe(*j)
+    t = runs["port"]
+    assert [r[0] for r in t] == [200] * 7
+    assert json.loads(t[0][2])["ids"][0] == 7
+    frame = np.frombuffer(t[1][2], np.uint32)[2:].reshape(16, 5, 2)
+    np.testing.assert_array_equal(frame[:, :, 0].astype(np.int64),
+                                  want.numpy().astype(np.uint32))
+    ids = json.loads(t[3][2])["ids"]
+    assert set(ids) <= set(allow)
+    assert json.loads(t[4][2])["main"]["shards"] == 8
+    assert json.loads(t[5][2]) == dict(ok=True, n=1200)
+    assert json.loads(t[6][2])["ids"][0] == 11
+
+
+def test_mesh_engine_reload_refuses_what_it_cannot_serve(tmp_path):
+    """/admin/reload of a directory a mesh engine cannot serve answers a
+    JSON 400 and keeps the served index: a base-less checkpoint (no store
+    serves its rerank), a plain directory, another shard count; the
+    engine itself refuses a sharded index on another mesh or without a
+    mesh."""
+    rng = np.random.default_rng(42)
+    base, centers = make_clustered_dataset(rng, n=800, dim=32, k=16)
+    tidx = rt.build_index(base, centers, device="cpu")
+    tmesh = tp.make_mesh(devices=["cpu"] * 4)
+    lean = dataclasses.replace(tidx, base=None)
+    tp.dump_index_sharded(tp.shard_index(lean, tmesh), tmp_path / "lean",
+                          global_pos=tp.shard_global_positions(lean, 4))
+    tser.dump_to_dir(tidx, tmp_path / "plain")
+    tp.dump_index_sharded(
+        tp.shard_index(tidx, tp.make_mesh(devices=["cpu"] * 2)),
+        tmp_path / "two")
+    eng = tserver.BatchingEngine(tp.shard_index(tidx, tmesh), mesh=tmesh,
+                                 max_batch=8)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), tserver.make_handler(
+        eng, default_probe=8, default_topk=3, allow_reload=True))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+    try:
+        for name, needle in (("lean", "no base"), ("plain", "not a sharded"),
+                             ("two", "2 shards")):
+            st, ctype, raw = call(url, "/admin/reload",
+                                  dict(dir=str(tmp_path / name)))
+            assert (st, ctype) == (400, "application/json"), (name, raw)
+            assert needle in json.loads(raw)["error"], raw
+        st, _, raw = call(url, "/query", dict(query=base[3].tolist()))
+        assert st == 200 and json.loads(raw)["ids"][0] == 3
+        with pytest.raises(ValueError, match="mesh engine"):
+            tserver.BatchingEngine(tp.shard_index(tidx, tmesh))
+        with pytest.raises(ValueError, match="on its mesh"):
+            eng.swap_index(tp.shard_index(
+                tidx, tp.make_mesh(devices=["cpu"] * 2)))
+        with pytest.raises(ValueError, match="global_pos"):
+            eng.swap_index(tp.shard_index(lean, tmesh), store=object())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        eng.close()
+
+
+def _serve_main(args, tmp_path, probe_query, want_id, shards):
+    """``python -m rabitq_tpu_torch.service.server ARGS`` on the CPU until
+    it answers ``probe_query`` with ``want_id`` first and lists ``shards``
+    shards; then SIGTERM and a clean exit."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rabitq_tpu_torch.service.server",
+         "--host", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         *args],
+        env=dict(os.environ, PYTHONPATH=str(REPO)), cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 120
+        while True:
+            assert proc.poll() is None, proc.communicate()[1]
+            try:
+                if call(url, "/health")[2] == b"OK":
+                    break
+            except urllib.error.URLError:
+                pass
+            assert time.time() < deadline, "the server never came up"
+            time.sleep(0.2)
+        st, _, raw = call(url, "/query", dict(query=probe_query.tolist(),
+                                              top_k=3, probe=4))
+        assert st == 200 and json.loads(raw)["ids"][0] == want_id
+        st, _, raw = call(url, "/indexes")
+        assert json.loads(raw)["default"]["shards"] == shards
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err
+    return err
+
+
+def test_main_boots_a_sharded_checkpoint(tmp_path):
+    """A dump_index_sharded directory boots a mesh engine (its shard count
+    from meta.json, the shards on CPU entries with --device cpu)."""
+    rng = np.random.default_rng(6)
+    base, centers = make_clustered_dataset(rng, n=500, dim=24, k=8)
+    idx = rt.build_index(base, centers, device="cpu")
+    tp.dump_index_sharded(
+        tp.shard_index(idx, tp.make_mesh(devices=["cpu"] * 3)),
+        tmp_path / "ckpt")
+    err = _serve_main(["--dir", str(tmp_path / "ckpt"), "--sharded-exact"],
+                      tmp_path, base[9], 9, 3)
+    assert "loaded shard 2" in err
+
+
+def test_main_shards_a_directory_over_a_cpu_mesh(tmp_path):
+    """--shards 2 shards a saved directory over two CPU entries; a
+    base-less store tier (--store mmap) serves through the global
+    positions."""
+    rng = np.random.default_rng(7)
+    base, centers = make_clustered_dataset(rng, n=500, dim=24, k=8)
+    tser.dump_to_dir(rt.build_index(base, centers, device="cpu"),
+                     tmp_path / "idx")
+    for extra in ([], ["--store", "mmap"]):
+        _serve_main(["--dir", str(tmp_path / "idx"), "--shards", "2",
+                     *extra], tmp_path, base[12], 12, 2)
+
+
+def test_main_sharded_checkpoint_with_a_local_store_exits_2(tmp_path,
+                                                            capsys):
+    """--store mmap|blockcache on a sharded checkpoint exits 2 at once,
+    naming the global base.fvecs it would need."""
+    rng = np.random.default_rng(8)
+    base, centers = make_clustered_dataset(rng, n=300, dim=24, k=8)
+    idx = rt.build_index(base, centers, device="cpu")
+    tp.dump_index_sharded(
+        tp.shard_index(idx, tp.make_mesh(devices=["cpu"] * 2)),
+        tmp_path / "ckpt")
+    for store in ("mmap", "blockcache"):
+        with pytest.raises(SystemExit) as ei:
+            tserver.main(["--dir", str(tmp_path / "ckpt"), "--device", "cpu",
+                          "--store", store])
+        assert ei.value.code == 2
+        err = capsys.readouterr().err
+        assert str(tmp_path / "ckpt" / "base.fvecs") in err
+
+
+def test_main_shards_from_a_cpu_loaded_index(tmp_path, monkeypatch):
+    """--shards loads the directory onto the CPU and shards from there,
+    whatever --device says: no full-size copy ever reaches a card."""
+    import rabitq_tpu_torch.index.serialize as ser
+    import rabitq_tpu_torch.parallel as par
+
+    rng = np.random.default_rng(9)
+    base, centers = make_clustered_dataset(rng, n=300, dim=24, k=8)
+    tser.dump_to_dir(rt.build_index(base, centers, device="cpu"),
+                     tmp_path / "idx")
+    loads, served = [], {}
+    real_load = ser.load_from_dir
+    monkeypatch.setattr(ser, "load_from_dir", lambda path, **kw: (
+        loads.append(kw.get("device")) or real_load(path, **kw)))
+    # A CPU stand-in for the card mesh make_mesh(2) would give.
+    real_mesh = par.make_mesh
+    monkeypatch.setattr(par, "make_mesh",
+                        lambda n=None, devices=None: real_mesh(
+                            devices=devices or ["cpu"] * n))
+    monkeypatch.setattr(tserver, "serve",
+                        lambda index, **kw: served.update(index=index, **kw))
+    tserver.main(["--dir", str(tmp_path / "idx"), "--shards", "2",
+                  "--device", "cuda"])
+    assert loads == ["cpu"]
+    assert served["mesh"].size == 2 and served["index"].mesh.size == 2
 
 
 def test_main_serves_a_saved_directory_until_sigterm(tmp_path):
