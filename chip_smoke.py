@@ -172,7 +172,24 @@ then non-zero and no result line is printed):
      at probe 80 over the 4 batches, every id allowed and every distance
      exact, the scan in qpack mode with the penalty; recall@100 against
      the allowed rows logged (no floor).
-  Every probe of both paths runs four times, in turns with the default
+  19. [bench gist200k|blobs|service|deep10m] bench.py's other
+     configurations at full size through the benchmark twin
+     (rabitq_tpu_torch.tools.bench.run, as `python -m
+     rabitq_tpu_torch.tools.bench --config <name>` runs them), each
+     printing its JSON line: gist200k (200k x 960, recall@100) and blobs
+     (1M x 128, Zipf-skewed blobs, balance 2.0) sweep probes until
+     recall reaches 0.95 and time the chosen probe; service (200k x 128)
+     drives an HTTP server in a thread with 32 concurrent binary clients
+     and then the batched protocol; deep10m (10M x 96, k 8192) builds a
+     base-less index, searches it through an mmap store, then through a
+     block cache over a range server that answers 500 to every 50th GET
+     (the ids must equal the mmap store's), and times row-filter builds
+     at 10M rows. Each must reach recall >= 0.93 at its chosen probe
+     (service on both protocols), deep10m must see faults injected, and
+     every scan call must launch quantize, rough_scan and gather_l2 once
+     (gist200k's scan in qpack mode; deep10m launches no gather_l2: its
+     exact stage runs on the host).
+  Every probe of the sift and gist paths runs four times, in turns with the default
   SearchParams (the lane fold on) and with select_reduce=False (the full
   scan output): on, off, off, on. A [<path> fold] line sets the two modes
   side by side: recall, device and host enqueue ms per batch, and from
@@ -214,6 +231,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# The benchmark twin's data generator (bench.py's numbers), launch counts
+# and batch timing, shared with its [bench <config>] phases.
+from rabitq_tpu_torch.tools.bench import (
+    make_dataset,
+    run_captured,
+    timed_batches,
+)
 
 # every_id: every result slot must hold an id. Off at topk 100 with
 # rerank 150 < 2 * topk, where the spill duplicates among a query's 150
@@ -270,35 +295,6 @@ SERVICE = dict(max_batch=64, window_ms=2.0, frames=4, frame=512, json=512,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def make_dataset(n, dim, n_centers, nq, seed=0, chunk_rows=1 << 16):
-    # Same generator as bench.py's make_dataset (a test checks they agree).
-    # Low-intrinsic-dimension manifold (like real SIFT/GIST embeddings):
-    # a Gaussian mixture in a d_int-dim latent space, linearly embedded in
-    # `dim` dims plus small ambient noise. Cluster structure exists (IVF
-    # helps) but neighborhoods straddle partition boundaries (probing
-    # matters) — matching the nprobe behavior of real datasets.
-    # The ambient noise is drawn and added in row chunks (one stream, in
-    # order, so the same numbers). Of bench.py's float64 [n + nq, dim]
-    # transients only the embedding z @ a remains: it stays one product,
-    # as in bench.py, so its rounding cannot depend on a chunking.
-    d_int = 16
-    rng = np.random.default_rng(seed)
-    centers_z = rng.standard_normal((n_centers, d_int)).astype(np.float32)
-    lab = rng.integers(0, n_centers, n + nq)
-    z = centers_z[lab] + 0.7 * rng.standard_normal((n + nq, d_int)).astype(
-        np.float32
-    )
-    a = rng.standard_normal((d_int, dim)).astype(np.float32) / np.sqrt(d_int)
-    za = z @ a
-    x = np.empty((n + nq, dim), np.float32)
-    for r in range(0, n + nq, chunk_rows):
-        rows = slice(r, min(r + chunk_rows, n + nq))
-        x[rows] = za[rows] + 0.1 * rng.standard_normal(
-            (rows.stop - r, dim)
-        ).astype(np.float32)
-    return x[:n], x[n:]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -608,45 +604,6 @@ def assert_gather_close(got, want):
     if not torch.allclose(got, want, rtol=1e-5, atol=atol):
         raise AssertionError(f"gather_l2 kernel != twin: max |diff| {err}")
     return err
-
-
-def run_captured(fn):
-    """fn() with the number of calls it made to the search module's
-    rough_scan stage, and the launches of the three search kernels (and
-    the scan's in qpack mode), all counted from 0 just before fn() and
-    read just after its synchronize."""
-    from rabitq_tpu_torch.ops import (
-        cuda_gather_l2,
-        cuda_quantize_residuals,
-        cuda_rough_scan,
-    )
-
-    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
-    stage = tsearch.rough_scan
-    calls = 0
-
-    def counted(*args, **kwargs):
-        nonlocal calls
-        calls += 1
-        return stage(*args, **kwargs)
-
-    tsearch.rough_scan = counted
-    try:
-        cuda_rough_scan.launches = cuda_rough_scan.launches_qpack = 0
-        cuda_rough_scan.launches_penalty = 0
-        cuda_gather_l2.launches = cuda_quantize_residuals.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-    finally:
-        tsearch.rough_scan = stage
-    return out, {
-        "rough_scan calls": calls,
-        "quantize": cuda_quantize_residuals.launches,
-        "rough_scan": cuda_rough_scan.launches,
-        "rough_scan qpack": cuda_rough_scan.launches_qpack,
-        "rough_scan penalty": cuda_rough_scan.launches_penalty,
-        "gather_l2": cuda_gather_l2.launches,
-    }
 
 
 def stage_kernels(event):
@@ -1276,7 +1233,8 @@ def log_fold_pair(label, probe, on, off, smi):
                           for runs in (on, off))
 
     log(f"[{label} fold] probe {probe}, fold on | off (select_reduce True | "
-        f"False; {len(on)} runs each, ran on, off, off, on): recall {pair('{:.4f}', lambda r: r['recall'])}; device "
+        f"False; {len(on)} runs each, ran on, off, off, on): recall "
+        f"{pair('{:.4f}', lambda r: r['recall'])}; device "
         f"ms/batch {pair('{:.3f}', lambda r: r['device_ms'])}; host enqueue "
         f"ms/batch {pair('{:.3f}', lambda r: r['enqueue_ms'])}; QPS "
         f"{pair('{:.1f}', lambda r: r['qps'])}; in one profiled batch: "
@@ -2248,36 +2206,6 @@ def assert_exact_distances(vec_of, flat_q, ids, dists, label):
                 f"{label}: returned distances are not the ids' distances")
 
 
-def timed_batches(run_all, warm_up, qd, topk):
-    """``run_all()`` (every batch of ``qd``: stacked dists and ids) after
-    ``warm_up()``, with the launch counts (from 0 just before it), wall
-    seconds and QPS (host clock to the synchronize), device ms a batch
-    (CUDA events) and host enqueue ms a batch; ids and dists [nq, topk]."""
-    nb = qd.shape[0]
-    warm_up()
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    enqueue = []
-
-    def run():
-        ev0.record()
-        t = time.perf_counter()
-        out = run_all()
-        enqueue.append(time.perf_counter() - t)
-        ev1.record()
-        return out
-
-    t0 = time.perf_counter()
-    (dists, ids), counts = run_captured(run)
-    search_s = time.perf_counter() - t0
-    return dict(dists=dists.reshape(-1, topk), ids=ids.reshape(-1, topk),
-                counts=counts, search_s=search_s,
-                qps=nb * qd.shape[1] / search_s,
-                device_ms=ev0.elapsed_time(ev1) / nb,
-                enqueue_ms=1e3 * enqueue[0] / nb)
-
-
 def timed_search_many(rt, index, qd, params, row_filter=None):
     """timed_batches of search_many over the query set."""
     return timed_batches(
@@ -3231,6 +3159,50 @@ def kmeans_tree_phase(rt, dev, smi, sift):
     return res["counts"]
 
 
+# bench.py's other configurations, each through the benchmark twin's
+# runner at full size: whether the path packs the query operand (None: no
+# gather_l2 either, the store tier reranks on the host).
+BENCH_PHASES = {"gist200k": True, "blobs": False, "service": False,
+                "deep10m": None}
+
+
+def bench_phase(dev, smi, name):
+    """``python -m rabitq_tpu_torch.tools.bench --config <name>`` in this
+    process: its JSON line, then recall >= MIN_RECALL at the chosen probe
+    (both protocols of the service), the block cache's faults injected and
+    absorbed (deep10m: the runner raises when its ids differ from the mmap
+    store's), and each search kernel launched once a scan call (no
+    gather_l2 on the store tier). Returns the launch counts."""
+    from rabitq_tpu_torch.tools import bench
+
+    args = bench.parse_args(["--config", name])
+    t0 = time.perf_counter()
+    (line, _), counts = run_captured(lambda: bench.run(args, dev))
+    seconds = time.perf_counter() - t0
+    log(json.dumps(line))
+    detail = line["detail"]
+    recalls = [detail["recall"]]
+    if name == "service":
+        recalls.append(detail["recall_batched"])
+    if min(recalls) < MIN_RECALL:
+        raise AssertionError(f"[bench {name}] recall {recalls} < "
+                             f"{MIN_RECALL}")
+    qpack = BENCH_PHASES[name]
+    if qpack is None:
+        if detail["transients_injected"] <= 0:
+            raise AssertionError(f"[bench {name}] no fault injected")
+        calls = counts["rough_scan calls"]
+        if not calls or counts["quantize"] != calls or (
+                counts["rough_scan"] != calls or counts["gather_l2"]):
+            raise AssertionError(f"[bench {name}]: launches {counts}")
+    else:
+        assert_path_launches(counts, f"bench {name}", qpack=qpack)
+    log(f"[bench {name}] {line['metric']} = {line['value']} {line['unit']} "
+        f"in {seconds:.1f}s (data, k-means, build, sweep and timing), "
+        f"recall {recalls}, launches {counts} [{smi}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -3360,6 +3332,14 @@ def main() -> int:
     path_counts["gist filter"] = gist_filter["counts"]
     del gist
     gist_label = f"gist probe {GIST_CHECK_PROBE}"
+
+    # 19. bench.py's other configurations through the benchmark twin.
+    t_bench = time.perf_counter()
+    for name in BENCH_PHASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        path_counts[f"bench {name}"] = bench_phase(dev, smi, name)
+    log(f"[bench] phase 19 took {time.perf_counter() - t_bench:.1f}s")
 
     def launches(name):
         """The main path's launches: the checked probes' default runs."""

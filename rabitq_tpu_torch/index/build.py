@@ -499,6 +499,7 @@ def build_index(
     spill: float = 0.0,
     spill_mode: str = "dist",
     spill_soar_lambda: float = 1.0,
+    keep_base: bool = True,
     device: torch.device | str | None = None,
 ) -> RaBitQIndex:
     """Build a RaBitQ index from base vectors and trained centroids.
@@ -525,6 +526,10 @@ def build_index(
                 ``spill_soar_lambda``); the search then dedups ids.
     chunk:      rows per device step (bounds the [chunk, k] distances;
                 chunk_rows).
+    keep_base:  keep the full-precision rows on the device for the rerank.
+                False builds the store tier's index (base None; searched
+                with store.search_with_store), with no sorted copy of the
+                rows on the device.
     """
     if metric not in ("l2", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
@@ -610,7 +615,8 @@ def build_index(
     map_ids = torch.as_tensor(orig_of, device=device)[order]
     # Spilled copies gather the same original row, so their rerank
     # distances are bitwise equal (the dedup relies on this).
-    base_sorted = x_all[map_ids.long()]
+    base_sorted = x_all[map_ids.long()] if keep_base else None
+    del x_all
     index = RaBitQIndex(
         codes=codes[order].contiguous(),
         factors=factors[order].contiguous(),

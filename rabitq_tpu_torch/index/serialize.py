@@ -246,6 +246,8 @@ def load_from_dir(
         capacity = max(128, round_up(int(sizes.max(initial=1)), 128))
     w32 = dim // WORD_BITS * code_bits
     base = read_matrix(path / "base.fvecs") if keep_base else None
+    if base is not None and base.size == 0:  # an empty file: no rows
+        base = base.reshape(0, dim)
     if base is not None and base.shape != (n, dim):
         raise ValueError(f"base {base.shape}, expected {(n, dim)}")
     extra_base = extra_ids = None

@@ -22,6 +22,7 @@ memtable) writes meta.json.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 from pathlib import Path
@@ -31,7 +32,11 @@ import numpy as np
 from rabitq_tpu_torch.index.index import RaBitQIndex
 from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
 from rabitq_tpu_torch.io import read_vecs, write_vecs
-from rabitq_tpu_torch.parallel.sharding import Mesh, ShardedIndex
+from rabitq_tpu_torch.parallel.sharding import (
+    Mesh,
+    ShardedIndex,
+    pad_empty_shard,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -86,12 +91,24 @@ def dump_index_sharded(
         )))
     for si, shard in sindex.local():
         sd = _shard_dir(path, si)
-        dump_to_dir(shard, sd, require_base=False)
+        n_real = int(shard.offsets[-1])  # 0 for a padded empty shard
+        dump_to_dir(_real_rows(shard, n_real), sd, require_base=False)
         if global_pos is not None:
-            gp = np.asarray(global_pos[si][: shard.n], np.int32)
+            gp = np.asarray(global_pos[si][:n_real], np.int32)
             write_vecs(sd / "global_pos.ivecs", [gp.astype(np.uint32)])
         logger.info("checkpoint: dumped shard %d (%d rows) to %s", si,
-                    shard.n, sd)
+                    n_real, sd)
+
+
+def _real_rows(shard: RaBitQIndex, n_real: int) -> RaBitQIndex:
+    """The shard without the padding rows of an empty one (JAX dumps a
+    shard's first offsets[-1] rows)."""
+    if shard.n == n_real:
+        return shard
+    return dataclasses.replace(
+        shard, codes=shard.codes[:n_real], factors=shard.factors[:n_real],
+        map_ids=shard.map_ids[:n_real],
+        base=None if shard.base is None else shard.base[:n_real])
 
 
 def load_index_sharded(
@@ -118,7 +135,7 @@ def load_index_sharded(
         if shard.k != k_max:
             raise ValueError(f"shard {si} has {shard.k} clusters, meta.json "
                              f"k_max {k_max}")
-        shards[si] = shard
+        shards[si] = pad_empty_shard(shard, int(meta["rows_max"]))
         logger.info("checkpoint: loaded shard %d (%d rows) onto %s", si,
                     shard.n, mesh.devices[si])
     return ShardedIndex(shards, k_max, int(meta["rows_max"]),

@@ -27,7 +27,10 @@ index: ``k_max`` clusters (padding centroids at _FAR, repeated offsets
 past the shard's last cluster), local offsets and global ids in
 ``map_ids``; the insert memtable rides on shard 0 only. Rows are not
 padded: a shard's arrays hold its rows only (``rows_max`` is kept for the
-global-position table and the checkpoint).
+global-position table and the checkpoint). A shard that gets no cluster
+with rows (more shards than such clusters) is padded as JAX pads it:
+``rows_max`` rows of zeros with id -1 behind offsets that are all 0, so a
+search of it yields only +inf / -1 candidates, which the merge drops.
 """
 
 from __future__ import annotations
@@ -320,12 +323,10 @@ def _shard_of(
 ) -> RaBitQIndex:
     """One shard of ``index`` on ``device``: the rows ``rows`` (the
     clusters of ``group``, in order), k_max padded clusters."""
-    if rows.numel() == 0:
-        raise ValueError("a shard with no rows: more shards than clusters "
-                         "holding rows")
     cent = torch.full((k_max, index.dim), _FAR, dtype=torch.float32)
     cent[: len(group)] = index.centroids_rot[
-        torch.as_tensor(group, device=index.centroids_rot.device)].cpu()
+        torch.as_tensor(group, dtype=torch.long,
+                        device=index.centroids_rot.device)].cpu()
     with_mem = memtable and index.m > 0
     return RaBitQIndex(
         codes=index.codes[rows].to(device),
@@ -348,6 +349,23 @@ def _shard_of(
     )
 
 
+def pad_empty_shard(shard: RaBitQIndex, rows_max: int) -> RaBitQIndex:
+    """A shard with no rows as the JAX package lays it out: ``rows_max``
+    rows of zero codes, factors and base with id -1 (its offsets, all 0,
+    keep them out of every cluster). Any other shard is returned as is."""
+    if shard.n:
+        return shard
+
+    def zeros(t):
+        return None if t is None else t.new_zeros((rows_max, *t.shape[1:]))
+
+    return dataclasses.replace(
+        shard, codes=zeros(shard.codes), factors=zeros(shard.factors),
+        map_ids=torch.full((rows_max,), -1, dtype=shard.map_ids.dtype,
+                           device=shard.map_ids.device),
+        base=zeros(shard.base))
+
+
 def shard_index(index: RaBitQIndex, mesh: Mesh) -> ShardedIndex:
     """Partition an index over the mesh: each of this process's shards is
     sliced from ``index`` and placed straight onto its device.
@@ -366,9 +384,9 @@ def shard_index(index: RaBitQIndex, mesh: Mesh) -> ShardedIndex:
         rows = np.concatenate(
             [np.arange(offsets[c], offsets[c + 1]) for c in group]
             or [np.zeros(0, np.int64)])
-        shards[si] = _shard_of(
+        shards[si] = pad_empty_shard(_shard_of(
             index, torch.from_numpy(rows).to(src), group, k_max, sizes,
-            mesh.devices[si], memtable=si == 0)
+            mesh.devices[si], memtable=si == 0), rows_max)
     tiles_max = max(
         _tiles(_local_offsets(sizes[g], k_max), index.capacity)
         for g in groups)
@@ -763,18 +781,19 @@ def build_index_sharded(
             gpos[si, : g.shape[0]] = g
         if mesh.owner(si) != mesh.rank:
             continue
-        if not segs or not sum(a.size for a in segs):
-            raise ValueError("a shard with no rows: more shards than "
-                             "clusters holding rows")
-        loc = order[np.concatenate(segs)]
+        loc = order[np.concatenate(segs or [np.zeros(0, np.int64)])]
         dev = mesh.devices[si]
         x = torch.from_numpy(pad_last_dim(base[orig_of[loc]], dim)).to(dev)
         lab = torch.from_numpy(labels_ext[loc].astype(np.int64)).to(dev)
-        _, codes, factors = _quantize_rows(x, lab, p_on[dev], c_on[dev],
-                                           bits, chunk)
+        if loc.size:
+            _, codes, factors = _quantize_rows(x, lab, p_on[dev], c_on[dev],
+                                               bits, chunk)
+        else:  # a shard with no rows: pad_empty_shard fills it below
+            codes = torch.zeros((0, dim), dtype=torch.int8, device=dev)
+            factors = torch.zeros((0, 4), dtype=torch.float32, device=dev)
         cent = torch.full((k_max, dim), _FAR, dtype=torch.float32)
         cent[: len(group)] = cent_seg[torch.as_tensor(group).long()]
-        shards[si] = RaBitQIndex(
+        shards[si] = pad_empty_shard(RaBitQIndex(
             codes=codes,
             factors=factors,
             offsets=torch.from_numpy(
@@ -790,7 +809,7 @@ def build_index_sharded(
             metric=metric,
             code_bits=bits,
             dedup_ids=bool(pick.size),
-        )
+        ), rows_max)
     tiles_max = max(
         _tiles(_local_offsets(sizes_seg[g], k_max), capacity) for g in groups)
     logger.info(

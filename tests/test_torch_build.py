@@ -5,11 +5,11 @@ their random draws differ, so builds from one seed are never compared.
 Offsets, map_ids and codes must be equal except rows within f32 rounding of
 a tie (the balancing eviction order, the grid-scale pick; at most 0.1% of
 rows, matched by (id, cluster)). Factors of the rows whose codes agree must
-be within rtol 1e-5 (f32 sums in a different order), except the error bound: err = c*sqrt((|r|/x_dot)^2 -
-|r|^2) cancels badly at x_dot ~ 0.99 (bits=4), so it is held to an absolute
-1e-5*|r| instead. k-means is compared by cost, within 2%, on the main
-path's data generator (bench.make_dataset), whose local optima lie within
-about 1% of each other.
+be within rtol 1e-5 (f32 sums in a different order), except the error
+bound: err = c*sqrt((|r|/x_dot)^2 - |r|^2) cancels badly at x_dot ~ 0.99
+(bits=4), so it is held to an absolute 1e-5*|r| instead. k-means is
+compared by cost, within 2%, on the main path's data generator
+(bench.make_dataset), whose local optima lie within about 1% of each other.
 """
 
 import jax

@@ -332,7 +332,8 @@ def test_gather_l2_kernel_matches_twin(dev, n, d, b, r):
 def test_gather_l2_kernel_edges(dev, d, r):
     """Both instances (D <= 128: 8 lanes a row; D > 128: 32 lanes in
     1024-float chunks; vectors past the row masked; D 2052 in three
-    chunks, the query reloaded per chunk), R across the 32-position item and a step (1 ... 300), B = 37
+    chunks, the query reloaded per chunk), R across the 32-position item
+    and a step (1 ... 300), B = 37
     (not a multiple of the 8 items a block takes), and out-of-range
     positions beside valid ones in one step of one lane group: NaN exactly
     there, the twin's values everywhere else."""

@@ -68,3 +68,48 @@ def test_hierarchical_kmeans_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default call would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hierarchical_kmeans(np.zeros((10, 4), np.float32), 2, 2)
+
+
+# Tree against flat k-means recall: the port's gap (flat - tree) must not
+# exceed the JAX package's by more than this, on the mean of four seeds
+# and two probes. Measured at this shape, the two packages' gaps
+# (0.018-0.063) differed by at most 0.014 point for point, and their means
+# by 0.003 (JAX 0.0366, port 0.0395).
+TREE_GAP_TOL = 0.015
+
+
+def test_tree_kmeans_recall_gap_matches_jax():
+    """Flat and tree (T 16 x D 16, 64 sampled rows a centroid) centroids
+    of each package, each built into the same port index (4 bits, balance
+    1.5, one generator seed) and searched unfolded at probes 4 and 8 over
+    1,000 queries: recall@10 against brute force. The tree costs recall in
+    both packages; the port's tree must cost no more than JAX's."""
+    import rabitq_tpu_torch as rt
+    from rabitq_tpu_torch.tools.bench import ground_truth, recall_at
+
+    base, q = make_dataset(40_000, 128, 256, 1000)
+    truth = ground_truth(base, q, 10, "cpu")
+    tree = dict(samples_per_centroid=64, iters=15)
+
+    def recalls(c):
+        idx = rt.build_index(base, c, bits=4, balance=1.5, device="cpu",
+                             generator=torch.Generator().manual_seed(2))
+        return [recall_at(rt.search(idx, torch.from_numpy(q), rt.SearchParams(
+            probe=p, topk=10, rerank=32, select_reduce=False))[1].numpy(),
+            truth) for p in (4, 8)]
+
+    gaps = {"jax": [], "port": []}
+    for seed in range(4):
+        jf = jkmeans.kmeans(base, 256, iters=15, key=jax.random.key(seed))
+        jt = jkmeans.hierarchical_kmeans(base, 16, 16,
+                                         key=jax.random.key(seed), **tree)
+        gen = torch.Generator().manual_seed
+        tf = rt.kmeans(base, 256, iters=15, device="cpu", generator=gen(seed))
+        tt = hierarchical_kmeans(base, 16, 16, device="cpu",
+                                 generator=gen(seed), **tree)
+        for pkg, (flat, tree_c) in (("jax", (jf, jt)), ("port", (tf, tt))):
+            gaps[pkg] += [a - b
+                          for a, b in zip(recalls(flat), recalls(tree_c))]
+    jax_gap, port_gap = np.mean(gaps["jax"]), np.mean(gaps["port"])
+    assert jax_gap > 0  # the tree costs recall at this shape
+    assert port_gap <= jax_gap + TREE_GAP_TOL, gaps

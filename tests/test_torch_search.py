@@ -308,7 +308,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, rabitq_tpu_torch, rabitq_tpu_torch.index.search, "
         "rabitq_tpu_torch.index.build, rabitq_tpu_torch.ops._cuda, "
-        "rabitq_tpu_torch.tools.int4probe; "
+        "rabitq_tpu_torch.tools.int4probe, rabitq_tpu_torch.tools.bench, "
+        "rabitq_tpu_torch.examples.quickstart, "
+        "rabitq_tpu_torch.examples.mutations, "
+        "rabitq_tpu_torch.examples.disk_tier, "
+        "rabitq_tpu_torch.examples.distributed, chip_smoke; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rabitq_tpu' or m.startswith('rabitq_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -486,3 +486,129 @@ def test_dryrun_multichip_on_a_cpu_mesh():
     fn, (q,) = entry("cpu")
     d, ids = fn(q)
     assert ids.shape == (16, 10) and (ids[:, 0] == torch.arange(16)).all()
+
+
+# More shards than clusters holding rows: JAX pads each empty shard
+# (rows_max rows of id -1, offsets all 0); so does the port.
+@pytest.fixture(scope="module")
+def sparse(tmp_path_factory):
+    """A 4-bit JAX index of 4 clusters, to shard 8 ways, and the port's
+    copy of it."""
+    rng = np.random.default_rng(5)
+    base, centers = make_clustered_dataset(rng, n=600, dim=32, k=4)
+    jidx = rq.build_index(base, centers, key=jax.random.key(3), bits=4)
+    tidx = port_copy(jidx, tmp_path_factory.mktemp("sparse"))
+    assert (jidx.cluster_sizes > 0).sum() < S
+    return base, centers, jidx, tidx, _queries(rng, base)
+
+
+def _empty(sidx):
+    return [si for si, sh in sidx.local() if int(sh.offsets[-1]) == 0]
+
+
+def test_empty_shards_plan_matches_jax(sparse, jmesh, tmesh):
+    _, _, jidx, tidx, _ = sparse
+    js, ts = jp.shard_index(jidx, jmesh), tp.shard_index(tidx, tmesh)
+    assert len(_empty(ts)) == S - 4
+    assert ts.k_max == js.offsets.shape[1] - 1
+    assert ts.rows_max == js.map_ids.shape[1] >= 8
+    assert ts.tiles_max == js.blob.shape[1]
+    for si, sh in ts.local():
+        np.testing.assert_array_equal(sh.offsets.numpy(),
+                                      np.asarray(js.offsets[si]))
+        np.testing.assert_array_equal(sh.centroids_rot.numpy(),
+                                      np.asarray(js.centroids_rot[si]))
+        jids = np.asarray(js.map_ids[si])
+        np.testing.assert_array_equal(sh.map_ids.numpy(), jids[: sh.n])
+        if si in _empty(ts):  # padded as JAX pads: rows_max rows, id -1
+            assert sh.n == ts.rows_max and (jids == -1).all()
+            np.testing.assert_array_equal(sh.base.numpy(),
+                                          np.asarray(js.base[si]))
+    np.testing.assert_array_equal(tp.shard_global_positions(tidx, S),
+                                  jp.shard_global_positions(jidx, S))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_empty_shards_search_matches_jax(sparse, jmesh, tmesh, exact):
+    base, _, jidx, tidx, q = sparse
+    js, ts = jp.shard_index(jidx, jmesh), tp.shard_index(tidx, tmesh)
+    kw = dict(probe=4, topk=10, rerank=64)
+    dj, ij = jp.sharded_search(js, jnp.asarray(q), jparams(**kw), jmesh,
+                               exact=exact)
+    dt, it = tp.sharded_search(ts, torch.from_numpy(q), tparams(**kw), tmesh,
+                               exact=exact)
+    assert_near(f"empty shards exact={exact}", it, dt, ij, dj)
+    assert (it >= 0).all()  # the empty shards' +inf / -1 never win
+    # And the unsharded search's answer.
+    du, iu = rt.search(tidx, torch.from_numpy(q), tparams(**kw))
+    assert_near("empty shards vs unsharded", it, dt, iu, du)
+    # A filter over the padded shards, and the store tier.
+    allow = np.arange(0, base.shape[0], 2)
+    tf = tp.make_sharded_row_filter(ts, tmesh, allow_ids=allow)
+    _, itf = tp.sharded_search(ts, torch.from_numpy(q), tparams(**kw),
+                               tmesh, exact=exact, row_filter=tf)
+    assert set(itf.numpy().ravel().tolist()) <= set(allow.tolist())
+
+
+@pytest.mark.parametrize("direction,lean", [
+    ("jax_to_port", False), ("jax_to_port", True), ("port_to_jax", True)])
+def test_empty_shards_checkpoint_byte_identical(sparse, jmesh, tmesh,
+                                                tmp_path, direction, lean):
+    """Byte-identical both ways. Port to JAX runs base-less: the JAX
+    loader reads an empty shard's base.fvecs as [0, 0] and asserts
+    [0, dim] (rabitq_tpu/parallel/checkpoint.py:259), so it cannot load a
+    checkpoint with a base and an empty shard, its own included."""
+    from test_torch_shard_checkpoint import assert_same_bytes
+
+    _, _, jidx, tidx, _ = sparse
+    if lean:
+        jidx = dataclasses.replace(jidx, base=None, base_bf16=None)
+        tidx = dataclasses.replace(tidx, base=None)
+    gpos = jp.shard_global_positions(jidx, S) if lean else None
+    if direction == "jax_to_port":
+        jp.dump_index_sharded(jp.shard_index(jidx, jmesh), tmp_path / "a",
+                              global_pos=gpos)
+        loaded = tp.load_index_sharded(tmp_path / "a", tmesh)
+        assert len(_empty(loaded)) == S - 4
+        tp.dump_index_sharded(loaded, tmp_path / "b",
+                              global_pos=tp.load_global_positions(
+                                  tmp_path / "a"))
+    else:
+        sidx = tp.shard_index(tidx, tmesh)
+        tp.dump_index_sharded(sidx, tmp_path / "a", global_pos=gpos)
+        jp.dump_index_sharded(jp.load_index_sharded(tmp_path / "a", jmesh),
+                              tmp_path / "b",
+                              global_pos=jp.load_global_positions(
+                                  tmp_path / "a"))
+        back = tp.load_index_sharded(tmp_path / "b", tmesh)
+        assert_shards_equal(back, sidx,
+                            fields=("codes", "factors", "offsets", "map_ids",
+                                    "centroids_rot"))
+    assert_same_bytes(tmp_path / "a", tmp_path / "b")
+
+
+def test_empty_shards_build_index_sharded(sparse, jmesh, tmesh):
+    """The direct build pads the empty shards as shard_index does (bit for
+    bit), with JAX's direct build's plan."""
+    base, centers, _, _, q = sparse
+    kw = dict(bits=4, balance=1.5)
+    ref_index = rt.build_index(base, centers, device="cpu",
+                               generator=torch.Generator().manual_seed(2),
+                               **kw)
+    ref = tp.shard_index(ref_index, tmesh)
+    new = tp.build_index_sharded(base, centers, tmesh,
+                                 generator=torch.Generator().manual_seed(2),
+                                 **kw)
+    assert_shards_equal(new, ref)
+    assert len(_empty(new)) == S - 4
+    js = jp.build_index_sharded(base, centers, jmesh, key=jax.random.key(0),
+                                orthogonal=new.first.orthogonal.numpy(), **kw)
+    assert new.k_max == js.offsets.shape[1] - 1
+    assert new.rows_max == js.map_ids.shape[1]
+    for si in _empty(new):
+        assert (np.asarray(js.map_ids[si]) == -1).all()
+        assert (new.shards[si].map_ids == -1).all()
+    p = tparams(probe=4, topk=5, rerank=32)
+    a = tp.sharded_search(new, torch.from_numpy(q), p, tmesh)
+    b = rt.search(ref_index, torch.from_numpy(q), p)
+    assert torch.equal(a[1], b[1])

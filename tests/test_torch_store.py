@@ -477,6 +477,10 @@ def test_no_port_module_imports_jax():
     files = sorted((REPO / "rabitq_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
+    for entry in ("tools/bench.py", "examples/quickstart.py",
+                  "examples/mutations.py", "examples/disk_tier.py",
+                  "examples/distributed.py"):
+        assert REPO / "rabitq_tpu_torch" / entry in files, entry
     bad = [str(f.relative_to(REPO)) for f in files
            if IMPORT_OF_JAX.search(f.read_text())]
     assert not bad, bad
