@@ -41,7 +41,13 @@ then non-zero and no result line is printed):
        query's 32 rows from 28 windows of 300 rows), to rtol 1e-5 and atol
        1e-5 * max|out|; its time is the kernel's device time with the L2
        cold (profile), beside its bound from the run's positions (each
-       distinct row once);
+       distinct row once); then its bf16-row instance (the two-level
+       rerank's first level) on the same operands with the base rounded
+       to bf16, at the gist shape and the sift shape (random and
+       cluster-local positions): to the same tolerance, NaN exactly at
+       positions outside [0, N), its device time with the L2 cold beside
+       its bound (distinct rows at 2 D bytes) and the f32 instance's time
+       on the f32 base at the same positions;
   4. [int4]   rabitq_tpu_torch.tools.int4probe.run (int4_dot_direct and
      int4_dot_staged equal to the twin and numpy), then both kernels
      (device time, L2 cold), the twin and torch._int_mm on the unpacked
@@ -52,7 +58,14 @@ then non-zero and no result line is printed):
      rerank 32, topk 10, batch 2048; brute-force ground truth on the card;
      recall@10 >= 0.93, every rough_scan call launching each of the three
      search kernels once (the scan unpacked); 64 queries re-searched on
-     the CPU path (the twins, the same params) must agree;
+     the CPU path (the twins, the same params) must agree; then [sift
+     rerank bf16]: the sift params at rerank 140 (the TPU measurement's
+     budget), f32 against the two-level rerank at the auto refine (40):
+     recall@10 >= 0.93, every distance its id's, the launches (the bf16
+     instance and the f32 one once a batch), one batch under sync debug
+     mode "error", device ms a batch, one profiled batch's busy ms and
+     rerank stage; and [sift packed]: search_many_packed at 20 bits, its
+     ids unpacked equal to search_many's, the bytes each copies;
   6. [sift filter] allowlists of 50%, 10% and 1% of the ids (numpy,
      seeded): filtered search_many of the 16,384 queries, every id allowed
      and every distance exact, recall@10 against brute force over the
@@ -171,12 +184,24 @@ then non-zero and no result line is printed):
      are counted and scored as misses. Then [gist filter]: a 1% allowlist
      at probe 80 over the 4 batches, every id allowed and every distance
      exact, the scan in qpack mode with the penalty; recall@100 against
-     the allowed rows logged (no floor).
-  19. [bench gist200k|blobs|service|deep10m] bench.py's other
+     the allowed rows logged (no floor). Then [gist rerank bf16] at probe
+     80: f32, the two-level rerank at the auto refine (400 >= R 150) and
+     at refine 0 (bf16 distances reported, no f32 launch), and at rerank
+     800 f32 against the auto refine (400 < R), each as [sift rerank
+     bf16] checks it (refine 0's distances those of the ids' bf16 rows),
+     with the bf16 copy's device memory; and [gist rank default]:
+     rank_precision "default" (one bf16 pass) against "highest", the pass
+     against the fp32 product of the bf16-rounded operands, the share of
+     (query, probed cluster) choices that differ, the GEMM route, recall,
+     device ms and the ranking stage's ms (ran highest, default, default,
+     highest), one batch under sync debug mode "error".
+  19. [bench gist|gist200k|blobs|service|deep10m] bench.py's other
      configurations at full size through the benchmark twin
      (rabitq_tpu_torch.tools.bench.run, as `python -m
      rabitq_tpu_torch.tools.bench --config <name>` runs them), each
-     printing its JSON line: gist200k (200k x 960, recall@100) and blobs
+     printing its JSON line: gist (1M x 960, recall@100, ranking clusters
+     in one bf16 pass as bench.py's gist default), gist200k (200k x 960,
+     recall@100) and blobs
      (1M x 128, Zipf-skewed blobs, balance 2.0) sweep probes until
      recall reaches 0.95 and time the chosen probe; service (200k x 128)
      drives an HTTP server in a thread with 32 concurrent binary clients
@@ -187,7 +212,8 @@ then non-zero and no result line is printed):
      at 10M rows. Each must reach recall >= 0.93 at its chosen probe
      (service on both protocols), deep10m must see faults injected, and
      every scan call must launch quantize, rough_scan and gather_l2 once
-     (gist200k's scan in qpack mode; deep10m launches no gather_l2: its
+     (gist's and gist200k's scan in qpack mode; deep10m launches no
+     gather_l2: its
      exact stage runs on the host).
   Every probe of the sift and gist paths runs four times, in turns with the default
   SearchParams (the lane fold on) and with select_reduce=False (the full
@@ -207,9 +233,10 @@ then non-zero and no result line is printed):
   mode runs under torch.cuda.set_sync_debug_mode("error"), so a host sync
   fails the run.
 
-Then a JSON line of per-kernel results, the nvidia-smi name/power-limit
-line, and last {"ok": true, "device": {...}}. Without a CUDA device the
-script exits 1 at once.
+Then a JSON line of per-kernel results (the gather_l2 kernel's bf16
+instance a row of its own, its launches those of the bf16 rerank runs),
+the nvidia-smi name/power-limit line, and last {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 at once.
 """
 
 from __future__ import annotations
@@ -264,6 +291,12 @@ SELECT_STAGE = "chip_smoke: selection stage"
 ESTIMATE_STAGE = "chip_smoke: estimate stage"  # a store-tier batch's
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 GATHER_KERNEL = "gather_l2_kernel"
+# The gather_l2 instances' row types, template arguments in their names.
+GATHER_BF16, GATHER_F32 = "Bf16Rows", "F32Rows"
+RERANK_STAGE = "chip_smoke: rerank stage"
+RANK_STAGE = "chip_smoke: ranking stage"
+STAGE_LABELS = (SCAN_STAGE, SELECT_STAGE, ESTIMATE_STAGE, RERANK_STAGE,
+                RANK_STAGE)
 INT4_KERNEL = "int4_dot_kernel"
 QUANT_KERNEL = "quantize_kernel"
 ELEMENTWISE = "elementwise_kernel"  # torch's pointwise kernels' names
@@ -465,7 +498,7 @@ def device_ops(prof):
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
-        and e.key not in (SCAN_STAGE, SELECT_STAGE, ESTIMATE_STAGE)
+        and e.key not in STAGE_LABELS
     ]
 
 
@@ -578,18 +611,19 @@ def cluster_gather_positions(dev, n, b, r, windows=28, width=300, seed=0):
     return torch.gather(starts, 1, pick) + off
 
 
-def gather_bound(pos, n, dim):
+def gather_bound(pos, n, dim, elem_bytes=4):
     """The least time of one gather_l2 call on these [B, R] positions into
-    N rows of ``dim`` floats: each distinct row that a position in [0, N)
-    names read once (however many positions name it), every position read
-    and every output written once, the [B, D] queries read once; against 3
+    N rows of ``dim`` values of ``elem_bytes`` (4 for the f32 instance, 2
+    for the bf16 one): each distinct row that a position in [0, N) names
+    read once (however many positions name it), every position read and
+    every output written once, the [B, D] f32 queries read once; against 3
     fp32 operations (subtract, multiply, add) an element of each valid
     position. Returns (bound ms, "bytes" or "operations", GB, distinct
     rows)."""
     b, r = pos.shape
     valid = pos[(pos >= 0) & (pos < n)]
     rows = int(torch.unique(valid).numel())
-    nbytes = rows * dim * 4 + b * r * (8 + 4) + b * dim * 4
+    nbytes = rows * dim * elem_bytes + b * r * (8 + 4) + b * dim * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 3 * valid.numel() * dim / FP32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
@@ -1050,6 +1084,52 @@ def check_gather_l2(dev, smi, n, dim, b, r, positions="random"):
         f"{every_gb / kernel_ms:.3f} TB/s [{smi}]")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=twin_ms,
                 bound_ms=bound_ms, bound_by=bound_by, rows=rows)
+
+
+def check_gather_l2_bf16(dev, smi, shape, n, dim, b, r, positions="random"):
+    """The gather_l2 kernel's bf16-row instance against its twin on the
+    operands of check_gather_l2 with the base rounded to bf16, to the same
+    tolerance (rows widen to f32 exactly; the sums run in other orders),
+    NaN at a position outside [0, N) as the twin; beside its bound (each
+    distinct row once, 2 D bytes) and the f32 instance on the f32 base at
+    the same positions, both by device time with the L2 cold."""
+    from rabitq_tpu_torch.ops import cuda_gather_l2, gather_l2_reference
+
+    base, pos, q = gather_operands(dev, n, dim, b, r, seed=dim)
+    if positions == "clusters":
+        pos = cluster_gather_positions(dev, n, b, r, seed=dim)
+    bf = base.to(torch.bfloat16)
+    got = cuda_gather_l2(bf, pos, q)
+    want = gather_l2_reference(bf, pos, q)
+    torch.cuda.synchronize()
+    err = assert_gather_close(got, want)
+    edge = pos.clone()
+    edge[0, 0], edge[-1, -1] = -1, n
+    nan = cuda_gather_l2(bf, edge, q, check_pos=False).isnan()
+    if int(nan.sum()) != 2 or not (nan[0, 0] and nan[-1, -1]):
+        raise AssertionError("gather_l2 bf16: NaN not exactly at the two "
+                             "positions outside [0, N)")
+    del got, want, edge, nan
+
+    kernel_ms = retry_lost_records(lambda: cold_device_ms(
+        lambda: cuda_gather_l2(bf, pos, q, check_pos=False), GATHER_BF16),
+        "gather_l2 bf16")
+    f32_ms = retry_lost_records(lambda: cold_device_ms(
+        lambda: cuda_gather_l2(base, pos, q, check_pos=False), GATHER_F32),
+        "gather_l2 f32")
+    twin_ms = cuda_ms(lambda: gather_l2_reference(bf, pos, q), 3)
+    bound_ms, bound_by, gb, rows = gather_bound(pos, n, dim, elem_bytes=2)
+    log(f"[kernel gather_l2 bf16 {shape} {positions}] N={n} D={dim} B={b} "
+        f"R={r}: within rtol 1e-5 / atol 1e-5*max of twin (max |diff| "
+        f"{err:.3g}), NaN exactly outside [0, N); kernel {kernel_ms:.4f} ms "
+        f"(device, L2 cold), f32 instance on the f32 base {f32_ms:.4f} ms, "
+        f"twin {twin_ms:.4f} ms; {rows} distinct rows of {b * r} "
+        f"positions, reads+writes {gb:.4f} GB, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, kernel at {100 * bound_ms / kernel_ms:.1f}% of bound "
+        f"[{smi}]")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=twin_ms,
+                f32_ms=f32_ms, bound_ms=bound_ms, bound_by=bound_by,
+                rows=rows)
 
 
 def int4_phase(dev, smi):
@@ -2529,7 +2609,7 @@ def certificate_violations(rt, index, q, params):
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     dists, _, safe = tsearch._search_with_certificate(index, q, params)
     y = rotate(tsearch._prep_queries(index, q), index.orthogonal)
-    cids = tsearch._rank_clusters(index, tsearch._rank_cdist(index, y),
+    cids = tsearch._rank_clusters(index, tsearch._rank_cdist(index, y, params),
                                   params.probe, params)
     probed = torch.zeros((q.shape[0], index.k), dtype=torch.bool,
                          device=q.device).scatter_(1, cids, True)
@@ -3159,11 +3239,324 @@ def kmeans_tree_phase(rt, dev, smi, sift):
     return res["counts"]
 
 
+# The reduced-precision options. [gist rerank bf16] also runs at a rerank
+# budget whose auto refine (max(4 topk, 32) = 400 at topk 100) keeps fewer
+# rows than R; [sift rerank bf16] at the budget of the TPU measurement that
+# found the option negative (DESIGN.md:364-373).
+GIST_WIDE_RERANK = 800
+SIFT_BF16_RERANK = 140
+# [<path> rerank bf16]: (variant, SearchParams changes, launches a batch of
+# the gather_l2 kernel's (bf16, f32) instances).
+GIST_BF16_BUDGETS = (
+    ("f32", {}, (0, 1)),
+    ("bf16 auto refine", dict(rerank_bf16=True), (1, 1)),
+    ("bf16 refine 0", dict(rerank_bf16=True, rerank_refine=0), (1, 0)),
+    (f"rerank {GIST_WIDE_RERANK} f32", dict(rerank=GIST_WIDE_RERANK), (0, 1)),
+    (f"rerank {GIST_WIDE_RERANK} bf16 auto refine",
+     dict(rerank=GIST_WIDE_RERANK, rerank_bf16=True), (1, 1)),
+)
+SIFT_BF16_BUDGETS = (
+    ("f32", dict(rerank=SIFT_BF16_RERANK), (0, 1)),
+    ("bf16 auto refine", dict(rerank=SIFT_BF16_RERANK, rerank_bf16=True),
+     (1, 1)),
+)
+# Bits a packed id: the sift corpus's ids are below its 1M rows.
+SIFT_ID_BITS = 20
+
+
+def profile_stages(rt, index, q, params, stages, label):
+    """One search batch under the profiler, each function of the search
+    module named in ``stages`` ({label: name}) inside a record_function
+    range of its label. Returns the batch's device busy ms, each stage's
+    device ms of torch's kernels launched under its range (the profiler
+    does not tie a kernel launched through ctypes to its range: the
+    package's kernels are read by name from the third value) and {kernel
+    name: (ms, launches)} of the batch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    saved = {name: getattr(tsearch, name) for name in stages.values()}
+
+    def ranged(lbl, fn):
+        def call(*args, **kwargs):
+            with record_function(lbl):
+                return fn(*args, **kwargs)
+        return call
+
+    torch.cuda.synchronize()
+    for lbl, name in stages.items():
+        setattr(tsearch, name, ranged(lbl, saved[name]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rt.search(index, q, params)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(tsearch, name, fn)
+    ops = device_ops(prof)
+    busy = sum(t for _, t, _ in ops)
+    stage_ms = {lbl: sum(us for _, us in stage_kernels(stage_event(prof, lbl)))
+                / 1e3 for lbl in stages}
+    if busy <= 0 or min(stage_ms.values()) <= 0:
+        raise ProfileLostRecords(f"[profile {label}] busy {busy}, stages "
+                                 f"{stage_ms}")
+    return busy, stage_ms, {k: (t, c) for k, t, c in ops}
+
+
+def kernel_ms_of(kernels, part):
+    return sum(t for k, (t, _) in kernels.items() if part in k)
+
+
+def rerank_run(rt, index, path, params, label, launches):
+    """search_many of the path's queries at ``params`` (timed_batches,
+    launch counts from 0 just before it), recall, and one profiled batch:
+    busy ms, the rerank stage's ms and its two gather_l2 instances'.
+    ``launches`` = (bf16 instance, f32 instance) launches a batch, checked
+    with one quantize and one scan launch a batch."""
+    qd, nb = path["qd"], path["qd"].shape[0]
+    res = timed_search_many(rt, index, qd, params)
+    res["recall"] = recall_of(res["ids"], path["truth"])
+    c = res["counts"]
+    want = (nb * launches[0], nb * launches[1])
+    if (c["rough_scan calls"] != nb or c["quantize"] != nb
+            or c["rough_scan"] != nb
+            or (c["gather_l2 bf16"], c["gather_l2"]) != want):
+        raise AssertionError(f"[{label}] launches {c}, gather_l2 bf16 and "
+                             f"f32 {want} wanted")
+    busy, stage, kernels = retry_lost_records(lambda: profile_stages(
+        rt, index, qd[1], params, {RERANK_STAGE: "_exact_rerank"}, label),
+        label)
+    bf16_ms = kernel_ms_of(kernels, GATHER_BF16)
+    f32_ms = kernel_ms_of(kernels, GATHER_F32)
+    # The stage: torch's kernels under its range and the gather kernels.
+    res.update(busy_ms=busy, rerank_ms=stage[RERANK_STAGE] + bf16_ms + f32_ms,
+               bf16_ms=bf16_ms, f32_ms=f32_ms)
+    if (res["bf16_ms"] > 0) != bool(launches[0]) or (
+            res["f32_ms"] > 0) != bool(launches[1]):
+        raise ProfileLostRecords(f"[{label}] gather_l2 records: bf16 "
+                                 f"{res['bf16_ms']} f32 {res['f32_ms']}")
+    return res
+
+
+def rerank_bf16_phase(rt, dev, smi, label, path, budgets):
+    """The two-level rerank on ``path``'s index at its checked probe:
+    f32 and the variants of ``budgets`` ([(variant, params changes,
+    (bf16, f32) launches a batch)]). Every run: recall >= MIN_RECALL,
+    every returned distance its id's (f32 rows; the bf16 rows at refine
+    0), the launches; one batch of each bf16 variant under sync debug mode
+    "error". Logs recall, device / busy ms a batch and the rerank stage's
+    ms with its kernels', and the bf16 copy's device memory. Returns
+    {variant: run} and the copy's GB."""
+    from rabitq_tpu_torch.index.index import with_bf16_base
+
+    t0 = time.perf_counter()
+    index, p, qd = path["index"], path["params"], path["qd"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    bf = with_bf16_base(index)
+    torch.cuda.synchronize()
+    copy_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    flat_q = path["flat_q"]
+    xb = torch.from_numpy(path["base"]).to(dev)
+    runs = {}
+    for variant, change, launches in budgets:
+        params = p._replace(**change)
+        idx = bf if params.rerank_bf16 else index
+        r = rerank_run(rt, idx, path, params, f"{label} {variant}", launches)
+        rows = (xb.to(torch.bfloat16).to(torch.float32)
+                if params.rerank_bf16 and params.rerank_refine == 0 else xb)
+        assert_exact_distances(rows, flat_q, r["ids"], r["dists"],
+                               f"{label} {variant}")
+        del rows
+        if r["recall"] < MIN_RECALL:
+            raise AssertionError(f"[{label} {variant}] recall "
+                                 f"{r['recall']:.4f} < {MIN_RECALL}")
+        if params.rerank_bf16:
+            check_no_host_sync(rt, idx, qd[1], params, f"{label} {variant}")
+        runs[variant] = r
+        log(f"[{label} {variant}] probe {params.probe} rerank "
+            f"{params.rerank} topk {params.topk} rerank_bf16 "
+            f"{params.rerank_bf16} refine {params.rerank_refine}: recall@"
+            f"{params.topk} {r['recall']:.4f}, device {r['device_ms']:.4f} "
+            f"ms/batch (CUDA events; enqueue {r['enqueue_ms']:.4f}), one "
+            f"profiled batch busy {r['busy_ms']:.4f} ms, rerank stage "
+            f"{r['rerank_ms']:.4f} ms (gather_l2 bf16 {r['bf16_ms']:.4f}, "
+            f"f32 {r['f32_ms']:.4f} ms), launches {r['counts']} [{smi}]")
+    del xb, bf
+    f32 = runs["f32"]
+    def against_f32(v, r):
+        return (f"{v}: recall {r['recall']:.4f} "
+                f"({r['recall'] - f32['recall']:+.4f}), busy "
+                f"{r['busy_ms']:.4f} ms ({r['busy_ms'] - f32['busy_ms']:+.4f}"
+                f"), rerank stage {r['rerank_ms']:.4f} ms")
+
+    log(f"[{label}] the bf16 copy {copy_gb:.3f} GB of device memory; "
+        + "; ".join(against_f32(v, r) for v, r in runs.items())
+        + f"; phase {time.perf_counter() - t0:.1f}s [{smi}]")
+    return runs, copy_gb
+
+
+def device_ms_by_kernel(fn, calls=10):
+    """fn() ``calls`` times back to back under the profiler (its inputs
+    warm in the L2, as a search batch finds them): the mean device ms of a
+    call and {kernel name: ms a call}. CUPTI drops the records of a call
+    or two: each kernel's time a launch is averaged over the records kept,
+    times its launches a call (its records over the calls kept, read from
+    the kernel with the fewest records); fewer than calls - 2 kept raise
+    ProfileLostRecords."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    kept = min((c for _, _, c in ops), default=0)
+    if kept < calls - 2:
+        raise ProfileLostRecords(f"{calls} calls: "
+                                 f"{[(k[:40], c) for k, _, c in ops]}")
+    by_kernel = {k: t / c * round(c / kept) for k, t, c in ops}
+    return sum(by_kernel.values()), by_kernel
+
+
+def gist_rank_default_phase(rt, dev, smi, gist):
+    """rank_precision "default" (one bf16 pass) against "highest" at the
+    gist path's checked probe: the pass on the card against the fp32
+    product of the bf16-rounded operands, the share of (query, probed
+    cluster) choices that differ, and per precision (run highest,
+    default, default, highest) recall@100 >= MIN_RECALL, the launches,
+    device ms a batch and one profiled batch's busy ms and ranking stage
+    (the distance matrix: norms, GEMM, clamp)."""
+    from rabitq_tpu_torch.ops import rotate
+    from rabitq_tpu_torch.ops.distances import bf16_gemm_route
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    t0 = time.perf_counter()
+    index, p, qd = gist["index"], gist["params"], gist["qd"]
+    lo = p._replace(rank_precision="default")
+    route = bf16_gemm_route(dev)
+    y = rotate(tsearch._prep_queries(index, gist["flat_q"]), index.orthogonal)
+    c = index.centroids_rot
+    got = tsearch._rank_cdist(index, y, lo)
+    yb, cb = (t.to(torch.bfloat16).to(torch.float32) for t in (y, c))
+    xx, cc = (y * y).sum(1, keepdim=True), (c * c).sum(1)
+    model = torch.clamp(xx - 2.0 * (yb @ cb.T) + cc[None, :], min=0.0)
+    scale = float(xx.max() + cc.max())
+    err = float((got - model).abs().max())
+    if err > 1e-5 * scale:
+        raise AssertionError(f"[gist rank default] the bf16 pass is off "
+                             f"the model by {err} (scale {scale})")
+    probe = p.probe
+    chosen = []
+    for params in (p, lo):
+        cids = tsearch._rank_clusters(
+            index, tsearch._rank_cdist(index, y, params), probe, params)
+        chosen.append(torch.zeros_like(got, dtype=torch.bool).scatter_(
+            1, cids, True))
+    differ = float((chosen[0] & ~chosen[1]).sum()) / (y.shape[0] * probe)
+    del got, model, yb, cb, chosen
+    y1 = y[: qd.shape[1]].contiguous()  # one batch's rotated queries
+    runs = {"highest": [], "default": []}
+    for prec in ("highest", "default", "default", "highest"):
+        params = p._replace(rank_precision=prec)
+        rank_ms, rank_kernels = retry_lost_records(
+            lambda: device_ms_by_kernel(
+                lambda: tsearch._rank_cdist(index, y1, params)),
+            f"gist rank {prec} stage")
+        r = timed_search_many(rt, index, qd, params)
+        r["recall"] = recall_of(r["ids"], gist["truth"])
+        assert_path_launches(r["counts"], f"gist rank {prec}", qpack=True)
+        if r["recall"] < MIN_RECALL:
+            raise AssertionError(f"[gist rank {prec}] recall "
+                                 f"{r['recall']:.4f} < {MIN_RECALL}")
+        busy, stage, kernels = retry_lost_records(lambda: profile_stages(
+            rt, index, qd[1], params, {RANK_STAGE: "_rank_cdist"},
+            f"gist rank {prec}"), f"gist rank {prec}")
+        gemm = max(rank_kernels.items(), key=lambda kv: kv[1])
+        r.update(busy_ms=busy, rank_ms=rank_ms, gemm=gemm, kernels=kernels)
+        runs[prec].append(r)
+    check_no_host_sync(rt, index, qd[1], lo, "gist rank default")
+
+    def pair(key, fmt="{:.4f}"):
+        return " | ".join(", ".join(fmt.format(r[key]) for r in runs[k])
+                          for k in ("highest", "default"))
+
+    def mean_ms(prec):
+        out = {}
+        for r in runs[prec]:
+            for k, (t, _) in r["kernels"].items():
+                out[k] = out.get(k, 0.0) + t / len(runs[prec])
+        return out
+
+    hi_k, lo_k = mean_ms("highest"), mean_ms("default")
+    moved = sorted(((k, lo_k.get(k, 0.0) - hi_k.get(k, 0.0))
+                    for k in hi_k.keys() | lo_k.keys()),
+                   key=lambda kv: -abs(kv[1]))[:6]
+
+    log(f"[gist rank default] probe {probe}, highest | default (ran "
+        f"highest, default, default, highest): recall@{p.topk} "
+        f"{pair('recall')}; device ms/batch {pair('device_ms')}; busy ms "
+        f"(one profiled batch) {pair('busy_ms')}; ranking stage ms "
+        f"{pair('rank_ms')} (the stage alone on one batch's rotated "
+        f"queries; its longest kernel: "
+        + " | ".join(f"{runs[k][0]['gemm'][0][:70]} "
+                     f"{runs[k][0]['gemm'][1]:.4f} ms"
+                     for k in ("highest", "default"))
+        + f"); {100 * differ:.3f}% of the (query, probed "
+        f"cluster) choices differ; GEMM route: {route}; the pass within "
+        f"{err:.3g} of the fp32 product of the bf16-rounded operands (scale "
+        f"{scale:.1f}); the batch's kernels that moved most, default - "
+        f"highest ms: " + "; ".join(f"{k[:60]} {d:+.4f}" for k, d in moved)
+        + f"; phase {time.perf_counter() - t0:.1f}s [{smi}]")
+    return dict(runs=runs, differ=differ, route=route, err=err)
+
+
+def sift_packed_phase(rt, dev, smi, sift):
+    """search_many_packed of the sift queries at the sift params: the
+    unpacked ids equal search_many's exactly; the bytes each copies to the
+    host (the port's int64 ids, and the int32 ids JAX returns), the copy
+    and unpack times, launches (one of each search kernel a batch)."""
+    from rabitq_tpu_torch.ops.idpack import unpack_ids
+
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    index, p, qd = sift["index"], sift["params"], sift["qd"]
+    words, counts = run_captured(lambda: tsearch.search_many_packed(
+        index, qd, p, SIFT_ID_BITS))
+    assert_path_launches(counts, "sift packed", qpack=False)
+    _, ids = rt.search_many(index, qd, p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_words = words.cpu()
+    words_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_ids = ids.cpu()
+    ids_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = unpack_ids(host_words, SIFT_ID_BITS, ids.numel())
+    unpack_s = time.perf_counter() - t0
+    if not np.array_equal(out, host_ids.numpy().reshape(-1)):
+        raise AssertionError("[sift packed] unpacked ids differ from "
+                             "search_many's")
+    packed_b, int32_b = host_words.numel() * 4, host_ids.numel() * 4
+    log(f"[sift packed] {ids.numel()} ids at {SIFT_ID_BITS} bits: equal to "
+        f"search_many's; packed {packed_b} bytes, the port's int64 ids "
+        f"{2 * int32_b} bytes, as int32 (JAX's) {int32_b} bytes "
+        f"({100 * (1 - packed_b / int32_b):.1f}% fewer); copy to the host "
+        f"{1e3 * words_s:.3f} ms packed, {1e3 * ids_s:.3f} ms int64; unpack "
+        f"{1e3 * unpack_s:.3f} ms (host numpy); launches {counts} [{smi}]")
+    return dict(packed_bytes=packed_b, int64_bytes=2 * int32_b,
+                counts=counts)
+
+
 # bench.py's other configurations, each through the benchmark twin's
 # runner at full size: whether the path packs the query operand (None: no
 # gather_l2 either, the store tier reranks on the host).
-BENCH_PHASES = {"gist200k": True, "blobs": False, "service": False,
-                "deep10m": None}
+BENCH_PHASES = {"gist": True, "gist200k": True, "blobs": False,
+                "service": False, "deep10m": None}
 
 
 def bench_phase(dev, smi, name):
@@ -3261,6 +3654,15 @@ def main() -> int:
     gather_sift = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32)
     gather_sift_cl = check_gather_l2(dev, smi, 1_200_000, 128, 2048, 32,
                                      positions="clusters")
+    gather_bf16 = {
+        "gist random": check_gather_l2_bf16(dev, smi, "gist", 1_200_000,
+                                            1024, 1024, 150),
+        "sift random": check_gather_l2_bf16(dev, smi, "sift", 1_200_000,
+                                            128, 2048, 32),
+        "sift clusters": check_gather_l2_bf16(dev, smi, "sift", 1_200_000,
+                                              128, 2048, 32,
+                                              positions="clusters"),
+    }
     torch.cuda.empty_cache()
 
     # 4. The int4 probe.
@@ -3272,9 +3674,17 @@ def main() -> int:
     sift_on, sift_off = sift["on"], sift["off"]
     sift_cpu_agreement(rt, sift["index"], sift["params"], sift["flat_q"],
                        sift_on["ids"], sift_on["dists"], SIFT["topk"])
+    path_counts = {}
+    # The two-level rerank at rerank 140, and the packed ids.
+    sift_bf16, _ = rerank_bf16_phase(rt, dev, smi, "sift rerank bf16", sift,
+                                     SIFT_BF16_BUDGETS)
+    path_counts["sift rerank bf16"] = sift_bf16["bf16 auto refine"]["counts"]
+    path_counts["sift packed"] = sift_packed_phase(rt, dev, smi,
+                                                   sift)["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6-8. Filters, adaptive search and autotune on the sift index.
-    path_counts = {}
     sift_filter = sift_filter_phase(rt, dev, smi, sift)
     path_counts["sift filter"] = {
         key: sum(r["counts"][key] for r in sift_filter.values())
@@ -3330,6 +3740,14 @@ def main() -> int:
     gist_on, gist_off = gist["on"], gist["off"]
     gist_filter = gist_filter_phase(rt, dev, smi, gist)
     path_counts["gist filter"] = gist_filter["counts"]
+    # The two-level rerank and the bf16 cluster ranking on the gist index.
+    gist_bf16, bf16_copy_gb = rerank_bf16_phase(
+        rt, dev, smi, "gist rerank bf16", gist, GIST_BF16_BUDGETS)
+    for variant, r in gist_bf16.items():
+        path_counts[f"gist rerank {variant}"] = r["counts"]
+    rank_default = gist_rank_default_phase(rt, dev, smi, gist)
+    path_counts["gist rank default"] = rank_default["runs"]["default"][0][
+        "counts"]
     del gist
     gist_label = f"gist probe {GIST_CHECK_PROBE}"
 
@@ -3361,6 +3779,10 @@ def main() -> int:
                                       (gist_label, (gist_on, gist_off)))
                    for mode, run in zip(("fold on", "fold off"), runs)]
 
+    bf16_runs = [r for runs in (gist_bf16, sift_bf16) for r in runs.values()]
+    if not sum(r["counts"]["gather_l2 bf16"] for r in bf16_runs):
+        raise AssertionError("the bf16 rerank paths launched no gather_l2 "
+                             "bf16 kernel")
     main_mode = scans["sift clusters", SCAN_MODES[2]]
     modes = {}
     for (ops, mode), r in scans.items():
@@ -3420,6 +3842,32 @@ def main() -> int:
          "in_search": {label: in_search(run, ("gather_ms", "gather_bound_ms",
                                                "gather_shape", "gather_rows"))
                        for label, run in search_runs}},
+        {"name": "gather_l2_bf16", "route": "cuda",
+         "source": "rabitq_tpu_torch/csrc/gather_l2.cu",
+         "replaces": "rabitq_tpu/index/search.py:793 (the bf16 rerank's "
+                     "XLA gather, _gather_l2(..., cast_f32=True) at :735; "
+                     "not a Pallas kernel)",
+         "launches": sum(r["counts"]["gather_l2 bf16"] for r in bf16_runs),
+         "launches_by_path": {p: c["gather_l2 bf16"]
+                              for p, c in path_counts.items()
+                              if "gather_l2 bf16" in c},
+         "max_abs_err": max(r["max_abs_err"] for r in gather_bf16.values()),
+         **{key: gather_bf16["gist random"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "f32_instance_ms": gather_bf16["gist random"]["f32_ms"],
+         "operands": "gist shape (D 1024, B 1024, R 150), the base in bf16; "
+                     "ms = device time with the L2 cold; bound_ms counts "
+                     "distinct rows at 2 D bytes; f32_instance_ms the f32 "
+                     "instance on the f32 base at the same positions",
+         "sift_shape": {k: v for k, v in gather_bf16.items()
+                        if k.startswith("sift")},
+         "copy_gb_gist": bf16_copy_gb,
+         "in_search": {f"{path} {v}": {key: r[key] for key in (
+             "bf16_ms", "f32_ms", "rerank_ms", "busy_ms", "recall")}
+             for path, runs in (("gist p80", gist_bf16),
+                                ("sift p28", sift_bf16))
+             for v, r in runs.items()}},
         {"name": "int4_dot_direct", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
          "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"],

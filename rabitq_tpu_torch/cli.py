@@ -5,14 +5,16 @@
     python -m rabitq_tpu_torch.cli run -b base.fvecs -c centroids.fvecs -s index_dir \\
         -q query.fvecs -t truth.ivecs -p 28 --rerank 32 -k 10 --batch 2048
     python -m rabitq_tpu_torch.cli run ... --autotune 0.95   (or --adaptive)
+    python -m rabitq_tpu_torch.cli run ... --rerank-bf16 --rerank-refine 0
 
 ``run`` loads the index directory (or builds it from -b/-c and saves it
 there) and evaluates recall and QPS over the queries; ``build`` builds and
 saves without evaluating; ``train`` runs k-means. The flags and defaults
 are the JAX CLI's; ``--device`` (default cuda) picks where everything
 runs, and without a card ``cuda`` raises, never falling back to the CPU.
-Flags of features the port does not have exit non-zero with the ROADMAP
-item that will serve them. Logging via the RABITQ_LOG env var.
+``--select-passes`` exits 2 with its reason: the JAX package's approximate
+selection runs only on a TPU, and off one it selects exactly, as the port
+always does. Logging via the RABITQ_LOG env var.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ import numpy as np
 import torch
 
 _EXACT = (
-    "not ported: the JAX package's approximate selection and bf16 rerank "
-    "are on ROADMAP's do-not-port list (the port's selection and rerank are "
-    "always exact f32)"
+    "not ported: the JAX package takes its approximate selection "
+    "(approx_min_k) only on a TPU and selects exactly on any other "
+    "backend, as the port always does"
 )
 
 
@@ -152,6 +154,13 @@ def cmd_run(args) -> dict:
     queries = read_matrix(args.query)
     truth = read_matrix(args.truth, np.int32)
     params = SearchParams(probe=args.probe, topk=args.topk, rerank=args.rerank)
+    if args.rerank_bf16:
+        from rabitq_tpu_torch.index.index import with_bf16_base
+
+        index = with_bf16_base(index)
+        params = params._replace(rerank_bf16=True)
+    if args.rerank_refine is not None:
+        params = params._replace(rerank_refine=args.rerank_refine)
     if args.no_fold:
         params = params._replace(select_reduce=False)
     if args.probe_rank:
@@ -297,6 +306,22 @@ def main(argv=None):
         "(SearchParams.select_reduce=False)",
     )
     p_run.add_argument(
+        "--rerank-bf16",
+        action="store_true",
+        help="two-level rerank: bf16 candidate distances from a bf16 copy "
+        "of the base (+50%% base memory) through the gather_l2 kernel's "
+        "bf16 instance, then f32 re-verification of the top "
+        "--rerank-refine",
+    )
+    p_run.add_argument(
+        "--rerank-refine",
+        type=int,
+        default=None,
+        help="f32 re-verify budget of --rerank-bf16: -1 auto "
+        "(max(4*topk, 32)), 0 = rank and report by bf16 distances, >0 "
+        "explicit rows",
+    )
+    p_run.add_argument(
         "--rerank-kernel",
         action="store_true",
         help="accepted for the JAX CLI's sake and changes nothing: the port "
@@ -337,14 +362,10 @@ def main(argv=None):
         metavar="DIR",
         help="write a torch.profiler Chrome trace of the query loop into DIR",
     )
-    refused = {
-        "--select-passes": (None, int, _EXACT),
-        "--rerank-bf16": ("store_true", None, _EXACT),
-        "--rerank-refine": (None, int, _EXACT),
-    }
-    for flag, (action, typ, why) in refused.items():
-        kw = dict(action=action) if action else dict(type=typ, default=None)
-        p_run.add_argument(flag, help=f"refused: {why}", **kw)
+    refused = {"--select-passes": _EXACT}
+    for flag, why in refused.items():
+        p_run.add_argument(flag, type=int, default=None,
+                           help=f"refused: {why}")
     p_run.set_defaults(fn=cmd_run)
 
     p_build = sub.add_parser("build", help="build and save an index")
@@ -371,8 +392,8 @@ def main(argv=None):
     if args.cmd == "train" and args.k is None and args.tree is None:
         ap.error("train requires -k or --tree T D")
     if args.cmd == "run":
-        for flag, (_, _, why) in refused.items():
-            if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+        for flag, why in refused.items():
+            if getattr(args, flag[2:].replace("-", "_")) is not None:
                 ap.error(f"{flag}: {why}")
     return args.fn(args)
 

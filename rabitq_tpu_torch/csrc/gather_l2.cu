@@ -11,6 +11,18 @@
 // rabitq_tpu_torch/ops/rerank_kernel.py:gather_l2_reference; the sums run
 // in another order, so the two agree to f32 rounding, not bit for bit.
 //
+// A second instance reads a bf16 base (the two-level rerank's first level,
+// SearchParams.rerank_bf16; in JAX an XLA gather, _gather_l2(...,
+// cast_f32=True) in rabitq_tpu/index/search.py):
+//
+//   out[b, i] = sum_d (f32(base_bf16[pos[b, i], d]) - q[b, d])^2
+//
+// with q and out f32. Widening bf16 to f32 is exact (a bf16 is the high
+// half of an f32), so the instance differs from the f32 one only in the
+// row type: rows are read as 16-byte vectors of 8 bf16 values instead of 4
+// floats, widened in registers, and the query stays f32 (two float4s a row
+// vector). Its bound is the same count with 2 D bytes a distinct row.
+//
 // What bounds it on this card: bytes, each distinct valid row of base once
 // (4 D bytes; a row that several positions name is needed once), B * R *
 // 12 of positions and output, and 4 B D of queries; 3 fp32 operations a
@@ -21,21 +33,27 @@
 // in flight) reached about 60% of the bound at D 128. The kernel reads a
 // row again for every position that names it; only L2 catches the repeats.
 //
-// Design. A warp takes one item: 32 consecutive positions of one query.
+// Design (both row types). A warp takes one item: 32 consecutive
+// positions of one query.
 //   - Positions: lane l loads position l of the item (one coalesced 256 B
 //     read); rows are handed out with __shfl_sync, so no row read waits on
 //     a dependent position load.
-//   - Two instances, chosen from D at launch. D <= 128: 8 lanes a row, 4
-//     float4s a lane, 4 rows a group a step: every load instruction covers
-//     4 rows of 128 contiguous bytes, 16 float4 a lane and 8 KB a warp in
-//     flight. D > 128: 32 lanes a row in chunks of 1024 floats, 8 float4s a
-//     lane, one 4 KB row a warp a step (98 registers). Lane s of a group
-//     takes vectors s, s + kLanes, ... of its chunk; vectors past the row
-//     are masked. Cache hints (L1::no_allocate, an L2 256-byte prefetch)
-//     measured no better than the plain read-only load.
-//   - Query: each lane keeps its kVpl float4s of the query in registers
-//     (reloaded per chunk only when D spans several chunks): no shared
-//     memory, no block barrier.
+//   - Two instances a row type, chosen from D at launch. f32, D <= 128: 8
+//     lanes a row, 4 vectors a lane, 4 rows a group a step: every load
+//     instruction covers 4 rows of 128 contiguous bytes, 16 vectors a lane
+//     and 8 KB a warp in flight. f32, D > 128: 32 lanes a row in chunks of
+//     1024 floats, 8 vectors a lane, one 4 KB row a warp a step (98
+//     registers). bf16, D <= 128 (a 256-byte row, 16 vectors): 8 lanes a
+//     row, 2 vectors a lane, 4 rows a group a step, 4 KB a warp in flight:
+//     as many rows in flight as the f32 instance. bf16, D > 128: 32 lanes
+//     a row in chunks of 1024 values, 4 vectors a lane, two 2 KB rows a
+//     warp a step. Lane s of a group takes vectors s, s + kLanes, ... of
+//     its chunk; vectors past the row are masked. Cache hints
+//     (L1::no_allocate, an L2 256-byte prefetch) measured no better than
+//     the plain read-only load (f32).
+//   - Query: each lane keeps the query values of its kVpl row vectors in
+//     registers as float4s (reloaded per chunk only when D spans several
+//     chunks): no shared memory, no block barrier.
 //   - Reduce: __shfl_xor_sync within each lane group, then lane j of the
 //     warp collects position j's sum, so the 32 outputs of an item are one
 //     coalesced 128 B store; NaN where the position is outside [0, N).
@@ -55,20 +73,48 @@ constexpr int kItem = 32;  // positions a warp takes: one a lane
 
 // 16 bytes of a row through the read-only path. Volatile, so that a load
 // the caller guards is never speculated past its guard.
-__device__ __forceinline__ float4 ld_row(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+__device__ __forceinline__ uint4 ld_row(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
 }
 
-template <int kLanes, int kVpl, int kUnroll>
+// The row types: values a 16-byte vector, and their f32 values.
+struct F32Rows {
+  static constexpr int kElems = 4;
+  __device__ static void widen(const uint4& v, float (&x)[4]) {
+    x[0] = __uint_as_float(v.x);
+    x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z);
+    x[3] = __uint_as_float(v.w);
+  }
+};
+
+// bf16 is the high half of an f32, and a 32-bit word holds element 2j in
+// its low half (little endian): widening is a shift or a mask, exact, as
+// __bfloat1622float2 does.
+struct Bf16Rows {
+  static constexpr int kElems = 8;
+  __device__ static void widen(const uint4& v, float (&x)[8]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[2 * j] = __uint_as_float(w[j] << 16);
+      x[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+};
+
+template <class Rows, int kLanes, int kVpl, int kUnroll>
 __global__ void __launch_bounds__(kThreads, 2)
-gather_l2_kernel(const float4* __restrict__ base,
+gather_l2_kernel(const uint4* __restrict__ base,
                  const int64_t* __restrict__ pos,
                  const float4* __restrict__ q, float* __restrict__ out,
                  int64_t n, int b, int r, int vecs) {
+  constexpr int kE = Rows::kElems;           // row values a vector
+  constexpr int kQv = kE / 4;                // query float4s a vector
   constexpr int kGroups = 32 / kLanes;       // rows a load instruction covers
   constexpr int kStep = kGroups * kUnroll;   // rows a step
   constexpr int kChunk = kLanes * kVpl;      // vectors of a row a chunk
@@ -85,23 +131,26 @@ gather_l2_kernel(const float4* __restrict__ base,
   const int rows = min(kItem, r - i0);
   const int64_t my_pos =
       lane < rows ? pos[(size_t)qb * r + i0 + lane] : int64_t(-1);
-  const float4* q_b = q + (size_t)qb * vecs;
+  const float4* q_b = q + (size_t)qb * vecs * kQv;
   const int chunks = (vecs + kChunk - 1) / kChunk;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint4 zero_row = make_uint4(0u, 0u, 0u, 0u);
 
-  float4 qr[kVpl];
+  float4 qr[kVpl][kQv];
   auto load_q = [&](int c) {
 #pragma unroll
     for (int v = 0; v < kVpl; ++v) {
       const int k = c * kChunk + sub + kLanes * v;
-      qr[v] = k < vecs ? __ldg(q_b + k) : zero;
+#pragma unroll
+      for (int j = 0; j < kQv; ++j)
+        qr[v][j] = k < vecs ? __ldg(q_b + k * kQv + j) : zero;
     }
   };
   if (chunks == 1) load_q(0);
 
   float res = 0.f;
   for (int s = 0; s * kStep < rows; ++s) {
-    const float4* row[kUnroll];
+    const uint4* row[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -115,21 +164,28 @@ gather_l2_kernel(const float4* __restrict__ base,
     for (int u = 0; u < kUnroll; ++u) acc[u] = 0.f;
     for (int c = 0; c < chunks; ++c) {
       if (chunks > 1) load_q(c);
-      float4 x[kUnroll][kVpl];
+      uint4 x[kUnroll][kVpl];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int v = 0; v < kVpl; ++v) {
           const int k = c * kChunk + kLanes * v;
-          x[u][v] = ok[u] && k + sub < vecs ? ld_row(row[u] + k) : zero;
+          x[u][v] = ok[u] && k + sub < vecs ? ld_row(row[u] + k) : zero_row;
         }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int v = 0; v < kVpl; ++v) {
-          const float dx = x[u][v].x - qr[v].x, dy = x[u][v].y - qr[v].y;
-          const float dz = x[u][v].z - qr[v].z, dw = x[u][v].w - qr[v].w;
-          acc[u] += dx * dx + dy * dy + dz * dz + dw * dw;
+          float e[kE];
+          Rows::widen(x[u][v], e);
+#pragma unroll
+          for (int j = 0; j < kQv; ++j) {
+            const float dx = e[4 * j] - qr[v][j].x;
+            const float dy = e[4 * j + 1] - qr[v][j].y;
+            const float dz = e[4 * j + 2] - qr[v][j].z;
+            const float dw = e[4 * j + 3] - qr[v][j].w;
+            acc[u] += dx * dx + dy * dy + dz * dz + dw * dw;
+          }
         }
     }
     // Reduce within each group, then lane j takes row j of the item.
@@ -148,15 +204,16 @@ gather_l2_kernel(const float4* __restrict__ base,
         my_pos >= 0 && my_pos < n ? res : __int_as_float(0x7fc00000);
 }
 
-template <int kLanes, int kVpl, int kUnroll>
+template <class Rows, int kLanes, int kVpl, int kUnroll>
 void launch(const void* base, const void* pos, const void* q, void* out,
             long long n, int b, int r, int dim, cudaStream_t stream) {
   const long long items = (long long)b * ((r + kItem - 1) / kItem);
   const unsigned blocks = static_cast<unsigned>((items + kWarps - 1) / kWarps);
-  gather_l2_kernel<kLanes, kVpl, kUnroll><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float4*>(base), static_cast<const int64_t*>(pos),
-      static_cast<const float4*>(q), static_cast<float*>(out), n, b, r,
-      dim >> 2);
+  gather_l2_kernel<Rows, kLanes, kVpl, kUnroll>
+      <<<blocks, kThreads, 0, stream>>>(
+          static_cast<const uint4*>(base), static_cast<const int64_t*>(pos),
+          static_cast<const float4*>(q), static_cast<float*>(out), n, b, r,
+          dim / Rows::kElems);
 }
 
 }  // namespace
@@ -170,9 +227,24 @@ extern "C" int rabitq_gather_l2(const void* base, const void* pos,
   if (b <= 0 || r <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dim <= 128) {
-    launch<8, 4, 4>(base, pos, q, out, n, b, r, dim, s);
+    launch<F32Rows, 8, 4, 4>(base, pos, q, out, n, b, r, dim, s);
   } else {
-    launch<32, 8, 1>(base, pos, q, out, n, b, r, dim, s);
+    launch<F32Rows, 32, 8, 1>(base, pos, q, out, n, b, r, dim, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16-row instance: `base` holds bf16 values, q and out f32. The same
+// preconditions, with dim % 8 == 0.
+extern "C" int rabitq_gather_l2_bf16(const void* base, const void* pos,
+                                     const void* q, void* out, long long n,
+                                     int b, int r, int dim, void* stream) {
+  if (b <= 0 || r <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dim <= 128) {
+    launch<Bf16Rows, 8, 2, 4>(base, pos, q, out, n, b, r, dim, s);
+  } else {
+    launch<Bf16Rows, 32, 4, 2>(base, pos, q, out, n, b, r, dim, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,9 @@ centroid.
                 int8 dot.
 - ``factors``   [N, 4] f32 — per-row (ip, ppc, err, cdsq) estimator factors.
 - ``base``      [N, D] f32 or None — full-precision rows for the rerank.
+- ``base_bf16`` [N, D] bf16 or None — a copy of ``base`` for the two-level
+                rerank (SearchParams.rerank_bf16), derived by
+                with_bf16_base and never serialized.
 - ``offsets``   [K + 1] int32 — prefix sums of cluster sizes.
 - ``map_ids``   [N] int32 — sorted row -> original id (duplicates when the
                 build spilled rows into a second cluster).
@@ -57,6 +60,7 @@ class RaBitQIndex:
     dedup_ids: bool = False
     extra_base: Optional[torch.Tensor] = None
     extra_ids: Optional[torch.Tensor] = None
+    base_bf16: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -70,6 +74,22 @@ class RaBitQIndex:
     def m(self) -> int:
         """Memtable rows (tombstoned ones included)."""
         return 0 if self.extra_base is None else self.extra_base.shape[0]
+
+
+def with_bf16_base(index):
+    """The index with the bf16 rerank copy of its base set (as
+    rabitq_tpu.index.index.with_bf16_base): unchanged when the copy is
+    already set or there is no base. The copy rounds to nearest even, as
+    ``astype(bfloat16)`` does, and costs half the base's bytes on its
+    device. A sharded index (parallel.ShardedIndex) gets one copy a local
+    shard."""
+    shards = getattr(index, "shards", None)
+    if shards is not None:
+        return dataclasses.replace(index, shards=[
+            None if s is None else with_bf16_base(s) for s in shards])
+    if index.base_bf16 is not None or index.base is None:
+        return index
+    return dataclasses.replace(index, base_bf16=index.base.to(torch.bfloat16))
 
 
 def padded_offsets(offsets: np.ndarray) -> np.ndarray:
@@ -122,23 +142,33 @@ class SearchParams(NamedTuple):
             sorted by centroid distance, so the first and last rows'
             cdsq bound it). It separates the tied segments of a split
             cluster and ranks empty clusters last.
+    rerank_bf16: two-level rerank: the candidates' distances come first
+            from the index's bf16 copy of the base (with_bf16_base; the
+            gather_l2 kernel's bf16-row instance), then the best
+            ``rerank_refine`` of them are recomputed from the f32 base.
+            Silently off when the index has no bf16 copy.
+    rerank_refine: rows re-verified in f32 under rerank_bf16. -1: auto,
+            max(4 * topk, 32); 0: none, rank and report by the bf16
+            distances; > 0: that many rows.
+    rank_precision: the cluster ranking's matmul. "highest": full fp32
+            (TF32 off). "default": one bf16 pass, as the TPU MXU's
+            DEFAULT: operands rounded to bf16, products summed in f32, an
+            f32 output. The early-stop certificate's bound stays fp32.
 
     The selection is always the JAX ``select_mode="exact"`` two-stage
     top-R, over the folded or the full scan output.
 
-    Not ported from the JAX package's SearchParams:
-    rerank_kernel:  the rerank always runs the gather+L2 kernel on the GPU.
-                    The JAX flag exists because its TPU kernel needs a
-                    second, lane-tiled copy of the base; this kernel reads
-                    the dense base, so there is nothing to turn off.
-    rerank_chunk:   caps the JAX path's [B, R, D] gather transient. The
-                    kernel has none; its CPU twin chunks by bytes itself.
-    rank_precision: "default" ranks clusters with one bf16 MXU pass. The
-                    port ranks in full fp32 (TF32 off), which only moves
-                    near-tied cluster ranks against that setting.
-    select_mode, approx_select, select_recall, select_passes: the
-                    approximate selections (``approx_min_k``, a TPU op);
-                    the port selects exactly.
+    Not ported from the JAX package's SearchParams (none changes a result
+    off a TPU):
+    select_mode, approx_select, select_recall, select_passes: the JAX
+                    package takes ``approx_min_k`` only when its backend
+                    is a TPU and selects exactly on any other, as the port
+                    always does.
+    rerank_chunk:   caps the JAX path's [B, R, D] gather transient, which
+                    the kernel never makes; the results are identical.
+    rerank_kernel:  selects a Mosaic layout (the lane-tiled base copy);
+                    the port always reranks with its gather_l2 kernel on
+                    the dense base.
     """
 
     probe: int = 100
@@ -149,3 +179,6 @@ class SearchParams(NamedTuple):
     fold_depth: int = 2
     probe_lo: int = 0
     probe_rank: str = "centroid"
+    rerank_bf16: bool = False
+    rerank_refine: int = -1
+    rank_precision: str = "highest"

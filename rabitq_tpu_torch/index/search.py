@@ -2,8 +2,9 @@
 
 For a batch of queries:
 
-  1. rotate the queries and rank every centroid by fp32 distance (or by
-     the annulus lower bound, ``probe_rank="annulus"``); the ``probe``
+  1. rotate the queries and rank every centroid by fp32 distance (one
+     bf16 pass at ``rank_precision="default"``), or by the annulus lower
+     bound (``probe_rank="annulus"``); the ``probe``
      best clusters are scanned (stable sort: ties go to the lower cluster
      id, as with ``lax.top_k``), those ranked [probe_lo, probe) on an
      adaptive escalation;
@@ -20,9 +21,11 @@ For a batch of queries:
   4. select the R lowest rough values exactly (per-task top-R, then a
      global top-R over the survivors) and decode their rows;
   5. exact L2 of the candidates' full-precision rows (ops/rerank_kernel.py
-     — the CUDA gather+L2 kernel on the GPU), merged with the exact
-     distances of the insert memtable's rows, and the final top-k —
-     deduplicated by id when the build spilled rows or a memtable is live.
+     — the CUDA gather+L2 kernel on the GPU; with ``rerank_bf16`` first
+     its bf16-row instance over every candidate, then the f32 one over
+     the best ``rerank_refine``), merged with the exact distances of the
+     insert memtable's rows, and the final top-k — deduplicated by id
+     when the build spilled rows or a memtable is live.
 
 Slots past a cluster's size, and tombstoned rows (cdsq +inf), estimate to
 +inf and never survive selection. ``search_adaptive`` escalates the probe
@@ -102,11 +105,14 @@ def _prep_queries(index: RaBitQIndex, queries: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def _rank_cdist(index: RaBitQIndex, y: torch.Tensor) -> torch.Tensor:
-    """[B, K] fp32 distances of the rotated queries to every centroid: the
-    probe ranking's input, shared by the scan and the early-stop
-    certificate, which recompute it identically."""
-    return pairwise_l2sq(y, index.centroids_rot)
+def _rank_cdist(
+    index: RaBitQIndex, y: torch.Tensor, params: SearchParams
+) -> torch.Tensor:
+    """[B, K] f32 distances of the rotated queries to every centroid at
+    ``params.rank_precision`` (fp32, or one bf16 pass): the probe
+    ranking's input, shared by the scan and the early-stop certificate,
+    which recompute it identically."""
+    return pairwise_l2sq(y, index.centroids_rot, params.rank_precision)
 
 
 def _cluster_radius_band(
@@ -182,7 +188,8 @@ def rough_scan(
     y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
     # Both rankings return rank-sorted columns, so [lo:] are exactly the
     # clusters an escalation adds.
-    cids = _rank_clusters(index, _rank_cdist(index, y), probe, params)[:, lo:]
+    cids = _rank_clusters(index, _rank_cdist(index, y, params), probe,
+                          params)[:, lo:]
     # The JAX gate of the nibble-packed query operand
     # (rabitq_tpu/index/search.py:403).
     qpack = index.dim % 256 == 0
@@ -283,6 +290,7 @@ def _exact_rerank(
     index: RaBitQIndex,
     q_pad: torch.Tensor,
     cand: Candidates,
+    params: SearchParams,
     include_memtable: bool = True,
     row_filter: RowFilter | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -291,13 +299,35 @@ def _exact_rerank(
     positions >= n: its [B, M] distances by one fp32 product (TF32 off),
     +inf for deleted rows, plus the filter's memtable penalty.
     ``include_memtable`` is False on adaptive levels after the first.
-    Returns (exact [B, R (+ M)], pos [B, R (+ M)])."""
+
+    With ``params.rerank_bf16`` and the index's bf16 copy (JAX's two-level
+    rerank, rabitq_tpu/index/search.py:793-818): every candidate's
+    distance from the bf16 rows first; at refine 0 those are the result
+    (ranked and reported); else the best min(R, refine) of them are
+    recomputed from the f32 base, their bf16 distance as their bound.
+    Returns (exact [B, R' (+ M)], pos [B, R' (+ M)]), R' = R or the
+    refined rows."""
     # estimate_candidates clamps positions into [0, n): no range check,
     # whose device-to-host read would stall the stream every batch.
-    exact = cuda_gather_l2(
-        index.base, cand.pos, q_pad.contiguous(), check_pos=False
-    )
-    exact = torch.where(torch.isfinite(cand.lower_bound), exact, torch.inf)
+    q = q_pad.contiguous()
+    exact = None
+    if params.rerank_bf16 and index.base_bf16 is not None:
+        approx = cuda_gather_l2(index.base_bf16, cand.pos, q, check_pos=False)
+        approx = torch.where(
+            torch.isfinite(cand.lower_bound), approx, torch.inf)
+        refine = params.rerank_refine
+        if refine < 0:
+            refine = max(4 * params.topk, 32)
+        if refine == 0:
+            exact = approx
+        else:
+            a, ei = torch.topk(approx, min(cand.pos.shape[1], refine),
+                               dim=-1, largest=False)
+            cand = cand._replace(pos=torch.gather(cand.pos, 1, ei),
+                                 lower_bound=a)
+    if exact is None:
+        exact = cuda_gather_l2(index.base, cand.pos, q, check_pos=False)
+        exact = torch.where(torch.isfinite(cand.lower_bound), exact, torch.inf)
     pos = cand.pos
     if include_memtable and index.m:
         ex_d = pairwise_l2sq(q_pad, index.extra_base)  # [B, M]
@@ -391,7 +421,8 @@ def search_with_stats(
         )
     cand = estimate_candidates(index, queries, params, row_filter)
     exact, pos = _exact_rerank(
-        index, _prep_queries(index, queries), cand, row_filter=row_filter
+        index, _prep_queries(index, queries), cand, params,
+        row_filter=row_filter,
     )
     precise = torch.isfinite(exact).sum(dim=1)
     dists, ids, _ = _top_results(index, exact, pos, params.topk)
@@ -428,6 +459,26 @@ def search_many(
     )
 
 
+def search_many_packed(
+    index: RaBitQIndex,
+    queries: torch.Tensor,
+    params: SearchParams,
+    nbits: int,
+    row_filter: RowFilter | None = None,
+) -> torch.Tensor:
+    """search_many returning only the ids, bit-packed to ``nbits`` bits
+    each (ops/idpack.py, the JAX package's layout bit for bit): [nb *
+    batch * topk / 32 rounded up, nbits] torch.uint32 words on the index's
+    device. Decode on the host with
+    ``ops.idpack.unpack_ids(words, nbits, nb * batch * topk)``. Invalid
+    slots (id -1) pack as all ones. For a link slower than the card,
+    such as remote serving; distances are dropped."""
+    from rabitq_tpu_torch.ops.idpack import pack_ids
+
+    _, ids = search_many(index, queries, params, row_filter)
+    return pack_ids(ids, nbits)
+
+
 def _certificate_safe(
     index: RaBitQIndex,
     y: torch.Tensor,
@@ -441,10 +492,13 @@ def _certificate_safe(
     current k-th result: every member x of cluster c has d(q, x)^2 >= the
     annulus bound of c (_annulus_bound). The probed set is ranked as the
     scan ranked it (_rank_cdist, _rank_clusters on the same inputs give
-    the same values), and the bound is computed from the same fp32
-    distances."""
-    cd = _rank_cdist(index, y)
-    cids = _rank_clusters(index, cd, probe, params)
+    the same values, at the same rank_precision), and the bound always
+    comes from fp32 distances: a bf16 pass could overestimate d(q, c) and
+    void the lower bound (rabitq_tpu/index/search.py:1010-1040)."""
+    cd_rank = _rank_cdist(index, y, params)
+    cids = _rank_clusters(index, cd_rank, probe, params)
+    cd = (pairwise_l2sq(y, index.centroids_rot)
+          if params.rank_precision != "highest" else cd_rank)
     bound = _annulus_bound(index, cd)  # [B, K]; empty clusters +inf
     probed = torch.zeros_like(bound, dtype=torch.bool).scatter_(1, cids, True)
     min_unprobed = torch.where(probed, torch.inf, bound).min(dim=-1).values
@@ -482,7 +536,7 @@ def _adaptive_level(
     cand = estimate_candidates(index, queries, params, row_filter)
     q_pad = _prep_queries(index, queries)
     exact, pos = _exact_rerank(
-        index, q_pad, cand, include_memtable=params.probe_lo == 0,
+        index, q_pad, cand, params, include_memtable=params.probe_lo == 0,
         row_filter=row_filter,
     )
     dists, _, pos = _top_results(

@@ -8,6 +8,11 @@ for base [N, D] f32, pos [B, R] int64 rows of base and q [B, D] f32. The
 JAX kernel reads a second, lane-tiled copy of the base for DMA legality;
 this one reads the dense [N, D] base, so the index keeps one copy.
 
+A bf16 base takes the kernel's bf16-row instance, the first level of the
+two-level rerank (SearchParams.rerank_bf16; an XLA gather in JAX,
+rabitq_tpu.index.search._gather_l2(..., cast_f32=True)): each row widened
+to f32 (exactly), q and the output f32.
+
 ``cuda_gather_l2`` runs the hand-written kernel (csrc/gather_l2.cu) on
 CUDA tensors and the twin ``gather_l2_reference`` on CPU tensors.
 """
@@ -25,12 +30,20 @@ from rabitq_tpu_torch.ops import _cuda
 _TWIN_CHUNK_BYTES = 1 << 28
 
 
+# The kernel instance a base dtype takes: its C entry point, and the
+# multiple of D its 16-byte row vectors need.
+_INSTANCES = {
+    torch.float32: ("rabitq_gather_l2", 4),
+    torch.bfloat16: ("rabitq_gather_l2_bf16", 8),
+}
+
+
 @functools.cache
-def _kernel():
-    """The built kernel's C entry point: four pointers, n, b, r, dim, the
+def _kernel(entry: str):
+    """A built instance's C entry point: four pointers, n, b, r, dim, the
     stream (pointers and the stream as c_void_p so ctypes does not cut
     them to 32 bits)."""
-    fn = _cuda.load("gather_l2").rabitq_gather_l2
+    fn = getattr(_cuda.load("gather_l2"), entry)
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
@@ -42,9 +55,12 @@ def _kernel():
 def _check(base, pos, q):
     if base.dim() != 2 or pos.dim() != 2:
         raise ValueError("base [N, D] and pos [B, R] must be 2-D")
+    if base.dtype not in _INSTANCES:
+        raise ValueError(f"base: expected float32 or bfloat16, got "
+                         f"{base.dtype}")
     d, (b, r) = base.shape[1], pos.shape
     expect = {
-        "base": (base, torch.float32, tuple(base.shape)),
+        "base": (base, base.dtype, tuple(base.shape)),
         "pos": (pos, torch.int64, (b, r)),
         "q": (q, torch.float32, (b, d)),
     }
@@ -62,10 +78,12 @@ def gather_l2_reference(
     base: torch.Tensor, pos: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: same contract, any device. A
-    position outside [0, N) gives NaN, as in the kernel.
+    position outside [0, N) gives NaN, as in the kernel. A bf16 base's
+    gathered rows are cast to f32 before the difference, as JAX's
+    ``_gather_l2(..., cast_f32=True)``.
 
-    Queries run in chunks that bound the gathered [chunk, R, D] rows to
-    _TWIN_CHUNK_BYTES.
+    Queries run in chunks that bound the gathered [chunk, R, D] f32 rows
+    to _TWIN_CHUNK_BYTES.
     """
     _check(base, pos, q)
     n, d = base.shape
@@ -75,7 +93,8 @@ def gather_l2_reference(
     for a in range(0, b, chunk):
         p = pos[a : a + chunk]
         valid = (p >= 0) & (p < n)
-        diff = base[torch.where(valid, p, 0)] - q[a : a + chunk, None, :]
+        rows = base[torch.where(valid, p, 0)].to(torch.float32)
+        diff = rows - q[a : a + chunk, None, :]
         out[a : a + chunk] = torch.where(
             valid, torch.sum(diff * diff, dim=-1), torch.nan
         )
@@ -89,15 +108,19 @@ def cuda_gather_l2(
     *,
     check_pos: bool = True,
 ) -> torch.Tensor:
-    """Squared L2 [B, R] f32 of ``base[pos[b, i]]`` against ``q[b]``.
+    """Squared L2 [B, R] f32 of ``base[pos[b, i]]`` against ``q[b]``;
+    ``base`` f32 or bf16 (its rows widened to f32).
 
-    CUDA tensors launch the sm_90a kernel; CPU tensors take the twin,
+    CUDA tensors launch the sm_90a kernel (the instance of the base's
+    dtype); CPU tensors take the twin,
     which gives NaN for a position outside [0, N). On CUDA such positions
     raise. That check reads a min/max pair back from the device, which
     stalls the stream; a caller whose positions lie in range by
     construction passes ``check_pos=False`` (the kernel still reads no row
     outside [0, N): it gives NaN there, as the twin does).
-    ``cuda_gather_l2.launches`` counts kernel launches (not twin calls).
+    ``cuda_gather_l2.launches`` counts the f32 instance's kernel launches
+    and ``cuda_gather_l2.launches_bf16`` the bf16 instance's (not twin
+    calls).
     """
     if base.device.type == "cpu":
         return gather_l2_reference(base, pos, q)
@@ -108,8 +131,10 @@ def cuda_gather_l2(
     b, r = pos.shape
     if torch.cuda.get_device_capability(base.device) != (9, 0):
         raise RuntimeError("the gather-l2 kernel is built for sm_90a only")
-    if d % 4:
-        raise ValueError(f"dim must be a multiple of 4, got {d}")
+    entry, multiple = _INSTANCES[base.dtype]
+    if d % multiple:
+        raise ValueError(f"dim must be a multiple of {multiple} for a "
+                         f"{base.dtype} base, got {d}")
     for t in (base, pos, q):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous, 16B-aligned")
@@ -120,7 +145,7 @@ def cuda_gather_l2(
         lo, hi = (int(v) for v in torch.aminmax(pos))
         if lo < 0 or hi >= n:
             raise ValueError(f"positions [{lo}, {hi}] outside [0, {n})")
-    launch = _kernel()
+    launch = _kernel(entry)
     with torch.cuda.device(base.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
@@ -129,8 +154,12 @@ def cuda_gather_l2(
         )
     if err:
         raise RuntimeError(f"gather_l2 kernel launch failed: CUDA error {err}")
-    cuda_gather_l2.launches += 1
+    if base.dtype == torch.bfloat16:
+        cuda_gather_l2.launches_bf16 += 1
+    else:
+        cuda_gather_l2.launches += 1
     return out
 
 
 cuda_gather_l2.launches = 0
+cuda_gather_l2.launches_bf16 = 0

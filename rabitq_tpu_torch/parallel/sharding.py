@@ -47,7 +47,11 @@ import torch
 
 from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.index.filter import make_row_filter
-from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
+from rabitq_tpu_torch.index.index import (
+    RaBitQIndex,
+    SearchParams,
+    with_bf16_base,
+)
 from rabitq_tpu_torch.utils import pad_last_dim, round_up
 
 logger = logging.getLogger(__name__)
@@ -373,7 +377,10 @@ def shard_index(index: RaBitQIndex, mesh: Mesh) -> ShardedIndex:
     Pass an index on the CPU (``load_from_dir(..., device="cpu")``) to
     shard a corpus whose full copy should never sit on a card: only the
     shards' own bytes reach the devices. Works with or without a base (a
-    base-less index is searched through sharded_search_with_store)."""
+    base-less index is searched through sharded_search_with_store). An
+    index with the bf16 rerank copy (with_bf16_base) gives each shard its
+    own, cast on the shard's device from its base, as the JAX package's
+    shard_index carries it."""
     offsets = index.offsets.cpu().numpy()
     sizes = np.diff(offsets).astype(np.int64)
     groups, k_max, rows_max = _shard_layout(sizes, mesh.size)
@@ -387,6 +394,8 @@ def shard_index(index: RaBitQIndex, mesh: Mesh) -> ShardedIndex:
         shards[si] = pad_empty_shard(_shard_of(
             index, torch.from_numpy(rows).to(src), group, k_max, sizes,
             mesh.devices[si], memtable=si == 0), rows_max)
+        if index.base_bf16 is not None:
+            shards[si] = with_bf16_base(shards[si])
     tiles_max = max(
         _tiles(_local_offsets(sizes[g], k_max), index.capacity)
         for g in groups)

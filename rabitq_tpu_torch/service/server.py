@@ -39,9 +39,12 @@ sits on a card). The mesh is one shard per card (make_mesh, which raises
 on a host with fewer cards), or with ``--device cpu`` N entries of the
 CPU.
 
-Not ported: the bf16 rerank (``--rerank-bf16``); ``--rerank-kernel`` is
-accepted and changes nothing, since the port always reranks with its
-gather_l2 kernel.
+``--rerank-bf16`` (``BatchingEngine(rerank_bf16=True)``) serves with the
+two-level rerank: the engine derives the index's bf16 copy
+(with_bf16_base) at boot and again on every ``swap_index``, and its
+requests carry ``SearchParams.rerank_bf16``; a store-tier engine ignores
+it, as the JAX service does. ``--rerank-kernel`` is accepted and changes
+nothing, since the port always reranks with its gather_l2 kernel.
 """
 
 from __future__ import annotations
@@ -60,13 +63,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rabitq_tpu_torch.index.index import SearchParams
+from rabitq_tpu_torch.index.index import SearchParams, with_bf16_base
 from rabitq_tpu_torch.metrics import METRICS
 
 logger = logging.getLogger(__name__)
-
-_BF16 = ("not ported: the bf16 rerank is on ROADMAP's do-not-port list "
-         "(the port's rerank is always exact f32)")
 
 
 @dataclass
@@ -100,7 +100,9 @@ class BatchingEngine:
     sharded_search_with_store, which needs ``global_pos``
     (shard_global_positions, load_global_positions). ``sharded_exact``
     selects the exact-mode budgets (recall at least the unsharded
-    index's, about S times the scan work)."""
+    index's, about S times the scan work). ``rerank_bf16`` serves with the
+    two-level rerank on the index's bf16 copy, derived here and on every
+    swap_index (ignored when a store serves the rerank)."""
 
     def __init__(
         self,
@@ -113,10 +115,14 @@ class BatchingEngine:
         mesh=None,
         global_pos=None,
         sharded_exact: bool = False,
+        rerank_bf16: bool = False,
     ):
         self._mesh = mesh
         self._sharded_exact = sharded_exact
         self._check_serves(index, store, global_pos)
+        self.rerank_bf16 = rerank_bf16 and store is None
+        if self.rerank_bf16:
+            index = with_bf16_base(index)  # one copy a shard on a mesh
         if default_rerank is None:
             # Multi-bit indexes rank candidates near-exactly, so the
             # default budget only covers fold/selection collisions; 1-bit
@@ -210,6 +216,8 @@ class BatchingEngine:
                 f"({index.dim_orig} != {self.index.dim_orig})"
             )
         self._check_serves(index, store, global_pos)
+        if self.rerank_bf16 and store is None:
+            index = with_bf16_base(index)
         # The generation rides in the same tuple as the index so the
         # dispatcher's snapshot can never pair an index with another
         # generation's filter cache.
@@ -316,7 +324,8 @@ class BatchingEngine:
             if rerank is None
             else min(max(int(rerank), top_k), MAX_RERANK)
         )
-        return SearchParams(probe=probe, topk=top_k, rerank=rerank)
+        return SearchParams(probe=probe, topk=top_k, rerank=rerank,
+                            rerank_bf16=self.rerank_bf16)
 
     def submit(
         self,
@@ -809,6 +818,7 @@ def serve(
     mesh=None,
     global_pos=None,
     sharded_exact: bool = False,
+    rerank_bf16: bool = False,
 ):
     """Serve one default index (optionally store-tiered, optionally
     sharded over ``mesh``) plus any number of named extras on their own
@@ -819,6 +829,7 @@ def serve(
     engine = BatchingEngine(
         index, store, max_batch=max_batch, window_ms=window_ms, mesh=mesh,
         global_pos=global_pos, sharded_exact=sharded_exact,
+        rerank_bf16=rerank_bf16,
     )
     engines = {default_name: engine}
     for name, idx in (extra_indexes or {}).items():
@@ -936,7 +947,11 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--window-ms", type=float, default=2.0)
     ap.add_argument(
-        "--rerank-bf16", action="store_true", help=f"refused: {_BF16}"
+        "--rerank-bf16",
+        action="store_true",
+        help="two-level rerank: bf16 candidate distances from a bf16 copy "
+        "of the base (+50%% base memory), the best max(4*top_k, 32) "
+        "re-verified in f32 (ignored with a --store other than device)",
     )
     ap.add_argument(
         "--rerank-kernel",
@@ -952,8 +967,6 @@ def main(argv=None):
         "card, never falls back to the CPU)",
     )
     args = ap.parse_args(argv)
-    if args.rerank_bf16:
-        ap.error(f"--rerank-bf16: {_BF16}")
 
     from rabitq_tpu_torch.index.serialize import load_from_dir
     from rabitq_tpu_torch.parallel import (
@@ -1075,6 +1088,7 @@ def main(argv=None):
         mesh=mesh,
         global_pos=global_pos,
         sharded_exact=args.sharded_exact,
+        rerank_bf16=args.rerank_bf16,
     )
 
 

@@ -6,8 +6,10 @@ Both packages search one JAX-built index (``port_of``): JAX with
 ``approx_select=False``, the port with ``select_reduce=False`` (JAX's CPU
 path never folds). The certificate, ``probe_used`` and the autotune curve
 must be equal; ids equal except at near-ties, distances to f32 rounding.
-JAX's ``rank_precision`` (a bf16 ranking pass) is not ported: its
-certificate case runs here under ``probe_rank="annulus"`` instead.
+JAX's certificate case under ``rank_precision="default"`` (a bf16
+ranking pass) has its counterpart in tests/test_torch_precision.py, held
+to a numpy model of the pass (XLA on the CPU ignores Precision.DEFAULT);
+here the case runs under ``probe_rank="annulus"``.
 
 Two faults of the JAX package that the port guards are pinned: a cluster
 whose first row is deleted bounds to +inf under the annulus ranking, and

@@ -9,7 +9,10 @@ on the same index (handed over through index/convert.py) but at near-ties,
 the port's side unfolded (select_reduce=False) and JAX's selecting exactly
 (approx_select=False), as ROADMAP's "What must match" states. Small
 service and deep10m runs go through the HTTP server and the faulty range
-server. Refused flags exit non-zero with their reason.
+server. The reduced-precision flags (``--rerank-bf16``,
+``--rerank-refine``, ``--rank-precision``) reach SearchParams and the
+line's detail, and the gist config ranks at "default" as bench.py's does.
+The flags that stay refused exit non-zero with their reason.
 """
 
 import ast
@@ -247,9 +250,8 @@ def test_deep10m_run_through_the_faulty_range_server():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--select-passes", "2"], ["--rerank-bf16"], ["--rerank-refine", "-1"],
-    ["--rerank-chunk", "256"], ["--rerank-kernel"], ["--no-rerank-kernel"],
-    ["--rank-precision", "default"], ["--rank-precision", "highest"],
+    ["--select-passes", "2"], ["--rerank-chunk", "256"], ["--rerank-kernel"],
+    ["--no-rerank-kernel"],
 ])
 def test_refused_flags_exit_nonzero_with_their_reason(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -257,6 +259,63 @@ def test_refused_flags_exit_nonzero_with_their_reason(argv, capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert argv[0] in err and bench.REFUSED[argv[0]][:30] in err
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--rerank-bf16"], "rerank_bf16", True),
+    (["--rerank-refine", "-1"], "rerank_refine", -1),
+    (["--rank-precision", "default"], "rank_precision", "default"),
+    (["--rank-precision", "highest"], "rank_precision", "highest"),
+])
+def test_precision_flags_reach_search_params(argv, field, value):
+    """bench.py's flags, accepted: each sets its SearchParams field on
+    every search configuration (--rank-precision over the config's
+    default, gist's "default" included)."""
+    assert set(bench.REFUSED) == {"--select-passes", "--rerank-chunk",
+                                  "--rerank-kernel", "--no-rerank-kernel"}
+    for config in ("sift", "gist", "gist200k", "blobs"):
+        args = bench.parse_args(["--config", config, *argv])
+        _, cfg = bench.config_of(args)
+        assert getattr(bench.search_params(cfg, args, 8), field) == value
+
+
+def test_gist_config_ranks_clusters_in_one_bf16_pass():
+    """bench.py's gist branch sets rank_precision "default" when the flag
+    is absent; its other configurations keep "highest". So does the twin."""
+    gist = next(n for n in ast.walk(_function("main"))
+                if isinstance(n, ast.If)
+                and ast.unparse(n.test) == "args.config == 'gist'")
+    sets = [ast.unparse(st) for node in ast.walk(gist)
+            if isinstance(node, ast.If)
+            and ast.unparse(node.test) == "args.rank_precision is None"
+            for st in node.body]
+    assert sets == ["args.rank_precision = 'default'"]
+    for config, want in (("gist", "default"), ("sift", "highest"),
+                         ("gist200k", "highest"), ("blobs", "highest")):
+        args = bench.parse_args(["--config", config])
+        _, cfg = bench.config_of(args)
+        assert cfg.rank_precision == want
+        assert bench.search_params(cfg, args, 8).rank_precision == want
+    quick = bench.parse_args(["--config", "gist", "--quick"])
+    assert bench.search_params(bench.config_of(quick)[1], quick,
+                               8).rank_precision == "highest"
+
+
+def test_rerank_bf16_run_reports_its_params():
+    """A small sift-like run with --rerank-bf16 --rerank-refine 0
+    --rank-precision default: the line's detail carries the three, and the
+    search reached the target recall."""
+    args = bench.parse_args(["--device", "cpu", "--rerank-bf16",
+                             "--rerank-refine", "0", "--rank-precision",
+                             "default"])
+    line, ids = bench.run(args, "cpu", cfg=_small("sift", **SIFT_SMALL))
+    _, detail = _line_keys("main")
+    d = line["detail"]
+    assert set(d) == (detail - DROPPED) | ADDED | {"rerank_bf16",
+                                                    "rerank_refine"}
+    assert d["rerank_bf16"] is True and d["rerank_refine"] == 0
+    assert d["rank_precision"] == "default"
+    assert d["recall"] >= 0.95 and ids.shape == (256, 10)
 
 
 def test_accepted_flags_and_no_card():

@@ -9,11 +9,14 @@ the host rerankers (``--rerank-mode heap|heuristic``) too. The port's
 ``build`` writes a directory that JAX loads and searches to the same
 recall. ``--adaptive``, ``--probe-rank annulus`` and ``--autotune`` report
 the JAX CLI's recall (the autotune one on an unspilled index: on a spilled
-one the JAX ground truth can name an id twice, ROADMAP queue 3). Flags of
-features on the do-not-port list exit 2; ``train --tree`` trains a
+one the JAX ground truth can name an id twice, ROADMAP queue 3).
+``--rerank-bf16`` and ``--rerank-refine`` reach the port's SearchParams
+and report the JAX CLI's recall; ``--select-passes`` (the JAX package's
+TPU-only approximate selection) exits 2; ``train --tree`` trains a
 hierarchical k-means.
 """
 
+import importlib
 import logging
 import re
 
@@ -140,9 +143,7 @@ def test_train(files, tmp_path):
 @pytest.mark.parametrize(
     "extra,message",
     [
-        (["--select-passes", "1"], "do-not-port"),
-        (["--rerank-bf16"], "do-not-port"),
-        (["--rerank-refine", "8"], "do-not-port"),
+        (["--select-passes", "1"], "only on a TPU"),
     ],
 )
 def test_run_refuses_unported_flags(files, capsys, extra, message):
@@ -151,6 +152,35 @@ def test_run_refuses_unported_flags(files, capsys, extra, message):
                             "cpu"))
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "extra,bf16,refine",
+    [
+        (["--rerank-bf16"], True, -1),
+        (["--rerank-refine", "8"], False, 8),
+    ],
+)
+def test_run_accepts_rerank_bf16_flags(files, caplog, monkeypatch, extra,
+                                       bf16, refine):
+    """The flags reach every search's SearchParams (with the index's bf16
+    copy under --rerank-bf16) and the run reports the JAX CLI's recall
+    with the same flags."""
+    argv = _run_args(files, files["jax_dir"], "--no-fold", *extra)
+    want = _jax_recall(caplog, argv)
+    tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
+    search, seen = tsearch.search_with_stats, []
+
+    def spy(index, q, params, *a):
+        seen.append((index.base_bf16 is not None, params))
+        return search(index, q, params, *a)
+
+    monkeypatch.setattr(tsearch, "search_with_stats", spy)
+    got = port_main(argv + ["--device", "cpu"])
+    assert _reported(got["recall"]) == want
+    assert seen and all(
+        has == bf16 and p.rerank_bf16 == bf16 and p.rerank_refine == refine
+        for has, p in seen)
 
 
 def test_train_tree_and_cuda_without_card(files, tmp_path, capsys):

@@ -18,7 +18,10 @@ arithmetic). The fused quantize kernel equals its twin bit for bit in the
 quantized values (packed or not), lo, delta and code_sum, and its ycd =
 sum r^2, summed in another order, within rtol 1e-6. The gather-l2 kernel
 sums the same f32 squares as its twin in another order: rtol 1e-5, atol
-1e-5 * max|out|; both give NaN exactly at positions outside [0, N).
+1e-5 * max|out|; both give NaN exactly at positions outside [0, N). So
+does its bf16-row instance, whose rows widen to f32 exactly. The search's
+two-level rerank, its bf16 cluster ranking and the packed ids agree with
+the CPU path.
 """
 
 import concurrent.futures
@@ -682,6 +685,107 @@ def test_penalty_kernel_equals_twin(dev, d, qpack, kind, fold, density):
     assert _same_bits(got, want)
     assert not _same_bits(got, plain)
     assert torch.isinf(got).sum() > torch.isinf(plain).sum()
+
+
+@pytest.mark.parametrize(
+    "n,d,b,r",
+    [
+        (3000, 256, 12, 40),
+        (1_200_000, 128, 2048, 32),  # the sift path's shapes
+        (1_200_000, 1024, 1024, 150),  # the gist path's shapes
+    ],
+)
+def test_gather_l2_bf16_kernel_matches_twin(dev, n, d, b, r):
+    base, pos, q = gather_operands(dev, n, d, b, r, seed=n + d)
+    base = base.to(torch.bfloat16)
+    got = cuda_gather_l2(base, pos, q)
+    want = gather_l2_reference(base, pos, q)
+    torch.cuda.synchronize()
+    assert_gather_close(got, want)
+    assert torch.equal(got[:, 2], got[:, 3])  # duplicate positions
+
+
+@pytest.mark.parametrize("r", [1, 31, 33, 150])
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 256, 1024, 2056])
+def test_gather_l2_bf16_kernel_edges(dev, d, r):
+    """Both bf16 instances (D <= 128: 8 lanes a row, 2 vectors a lane;
+    D > 128: 32 lanes in 1024-value chunks, D 2056 in three), R across an
+    item, B = 37, and out-of-range positions: NaN exactly there."""
+    n, b = 3000, 37
+    gen = torch.Generator(device=dev).manual_seed(d * 1000 + r)
+    base = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    pos = torch.randint(0, n, (b, r), generator=gen, device=dev)
+    bad = [(5, 0, -1), (36, r - 1, n + 7)]
+    for i, j, v in bad:
+        pos[i, j] = v
+    got = cuda_gather_l2(base, pos, q, check_pos=False)
+    want = gather_l2_reference(base, pos, q)
+    torch.cuda.synchronize()
+    nan = torch.zeros((b, r), dtype=torch.bool, device=dev)
+    for i, j, _ in bad:
+        nan[i, j] = True
+    assert torch.equal(got.isnan(), nan) and torch.equal(want.isnan(), nan)
+    assert_gather_close(got[~nan], want[~nan])
+
+
+def test_gather_l2_bf16_launch_counter_and_rejections(dev):
+    base, pos, q = gather_operands(dev, 500, 64, 6, 10, seed=4)
+    bf = base.to(torch.bfloat16)
+    f32, before = cuda_gather_l2.launches, cuda_gather_l2.launches_bf16
+    cuda_gather_l2(bf, pos, q)
+    assert cuda_gather_l2.launches_bf16 == before + 1
+    assert cuda_gather_l2.launches == f32
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_gather_l2(bf[:, :60].contiguous(), pos, q[:, :60].contiguous())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gather_l2(base.half(), pos, q)
+    assert cuda_gather_l2.launches_bf16 == before + 1
+
+
+def test_rerank_bf16_and_bf16_ranking_on_card_equal_cpu(dev):
+    """The two-level rerank at refine -1 and 0, and the bf16 ranking, on
+    the card: the bf16 instance launches once a batch (and the f32 one
+    once more when it refines), the results equal the CPU path's but at
+    near-ties; the packed ids unpack to the search's."""
+    from rabitq_tpu_torch.index.index import with_bf16_base
+    from rabitq_tpu_torch.index.search import search_many_packed
+    from rabitq_tpu_torch.ops.distances import bf16_gemm_route
+    from rabitq_tpu_torch.ops.idpack import nbits_for, unpack_ids
+
+    rng = np.random.default_rng(4)
+    centers = rng.standard_normal((16, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 6000)]
+            + 0.3 * rng.standard_normal((6000, 128))).astype(np.float32)
+    idx = with_bf16_base(rt.build_index(
+        base, centers, bits=4, spill=0.2, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    cpu_idx = with_bf16_base(_cpu_copy(idx))
+    queries = torch.from_numpy(base[:32] + 0.01)
+    for refine, f32_launches in ((-1, 1), (0, 0)):
+        params = rt.SearchParams(probe=6, topk=10, rerank=64,
+                                 rerank_bf16=True, rerank_refine=refine)
+        before = (cuda_gather_l2.launches, cuda_gather_l2.launches_bf16)
+        d_gpu, i_gpu = rt.search(idx, queries.to(dev), params)
+        torch.cuda.synchronize()
+        assert (cuda_gather_l2.launches - before[0],
+                cuda_gather_l2.launches_bf16 - before[1]) == (f32_launches, 1)
+        d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
+        same = i_gpu.cpu() == i_cpu
+        assert same.float().mean() >= 0.98
+        torch.testing.assert_close(d_gpu.cpu()[same], d_cpu[same],
+                                   rtol=1e-5, atol=1e-5)
+    assert bf16_gemm_route(dev).startswith("cublas")
+    p = rt.SearchParams(probe=6, topk=10, rerank=64, rank_precision="default")
+    d_gpu, i_gpu = rt.search(idx, queries.to(dev), p)
+    d_cpu, i_cpu = rt.search(cpu_idx, queries, p)
+    assert (i_gpu.cpu() == i_cpu).float().mean() >= 0.98
+    nb = nbits_for(idx.n)
+    words = search_many_packed(idx, queries.to(dev).reshape(2, 16, 128), p,
+                               nb)
+    _, ids = rt.search_many(idx, queries.to(dev).reshape(2, 16, 128), p)
+    np.testing.assert_array_equal(unpack_ids(words, nb, ids.numel()),
+                                  ids.cpu().numpy().reshape(-1))
 
 
 def test_filtered_mutated_adaptive_search_on_card(dev):

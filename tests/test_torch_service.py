@@ -11,7 +11,8 @@ the shapes of the responses must be equal, and every id the port's server
 returns must equal the port's in-process ``search`` of the same rows at
 the engine's params. Mesh engines of both packages (8 shards) answer the
 same requests, reload a sharded checkpoint, and the port's refuses with a
-400 what it cannot serve. ``main`` refuses the bf16 flag, serves a saved
+400 what it cannot serve. ``main`` hands ``--rerank-bf16`` to the engine
+(which serves with the index's bf16 copy), serves a saved
 directory through the block cache until SIGTERM, boots a sharded
 checkpoint and ``--shards 2`` over CPU entries, shards from a CPU-loaded
 index, and exits 2 on a sharded checkpoint with a local store.
@@ -394,11 +395,28 @@ def test_service_server_queues_32_connections_made_at_once():
 
 
 @pytest.mark.parametrize("flag", [["--rerank-bf16"]])
-def test_main_refuses_unported_flags(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as ei:
-        tserver.main(["--dir", str(tmp_path), "--device", "cpu", *flag])
-    assert ei.value.code == 2
-    assert "do-not-port" in capsys.readouterr().err
+def test_main_accepts_rerank_bf16(flag, tmp_path, monkeypatch):
+    """``--rerank-bf16`` reaches serve(), whose engine derives the bf16
+    copy and puts rerank_bf16 into every request's SearchParams, as the
+    JAX service does."""
+    rng = np.random.default_rng(6)
+    base, centers = make_clustered_dataset(rng, n=400, dim=24, k=4)
+    tser.dump_to_dir(rt.build_index(base, centers, device="cpu"),
+                     tmp_path / "idx")
+    served = {}
+    monkeypatch.setattr(tserver, "serve",
+                        lambda index, **kw: served.update(index=index, **kw))
+    tserver.main(["--dir", str(tmp_path / "idx"), "--device", "cpu", *flag])
+    assert served["rerank_bf16"] is True and served["store"] is None
+    eng = tserver.BatchingEngine(served["index"], max_batch=8,
+                                 rerank_bf16=served["rerank_bf16"])
+    try:
+        assert eng.index.base_bf16 is not None
+        assert eng._make_params(5, 4).rerank_bf16
+        _, ids = eng.submit(base[7], 5, 4)
+        assert ids[0] == 7
+    finally:
+        eng.close()
 
 
 def _mesh_servers(jidx, tidx, jmesh, tmesh):
