@@ -137,7 +137,11 @@ def _autotuned(index, queries, params, args):
 
 
 def cmd_run(args) -> dict:
-    """Evaluate; returns {"qps", "recall"} (also logged)."""
+    """Evaluate; returns {"qps", "recall"} (also logged). With
+    ``--profile``, one more pass over the queries with the spans on, after
+    the timed loop, gives the search stages' totals printed below the
+    phases'."""
+    from rabitq_tpu_torch import profiling
     from rabitq_tpu_torch.index.index import SearchParams
     from rabitq_tpu_torch.index.search import (
         search_adaptive,
@@ -149,6 +153,8 @@ def cmd_run(args) -> dict:
     from rabitq_tpu_torch.utils import calculate_recall
 
     log = logging.getLogger("rabitq_tpu_torch.cli")
+    if args.profile:
+        TIMER.clear()
     with TIMER.phase("load_or_build"):
         index = _load_or_build(args)
     queries = read_matrix(args.query)
@@ -195,6 +201,14 @@ def cmd_run(args) -> dict:
             outs = [run_batch(qdev[s : s + batch])
                     for s in range(0, nq + pad, batch)]
         total_time = time.perf_counter() - start
+        if args.profile:
+            profiling.enable()
+            try:
+                with TIMER.phase("stages"):
+                    for s in range(0, nq + pad, batch):
+                        run_batch(qdev[s : s + batch])
+            finally:
+                profiling.disable()
         with TIMER.phase("recall"):
             all_ids = torch.cat([ids for ids, _ in outs]).cpu().numpy()
             for bi, (_, stats) in enumerate(outs):
@@ -354,7 +368,9 @@ def main(argv=None):
     p_run.add_argument(
         "--profile",
         action="store_true",
-        help="print per-phase wall-clock totals at exit (PhaseTimer)",
+        help="print per-phase wall-clock totals at exit, then the search "
+        "stages' host and device totals over one more pass of the queries "
+        "with the spans on (profiling.SPANS); the QPS is the timed pass's",
     )
     p_run.add_argument(
         "--trace",

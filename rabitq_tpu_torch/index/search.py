@@ -1,31 +1,35 @@
 """Batched query pipeline (port of rabitq_tpu.index.search).
 
-For a batch of queries:
+For a batch of queries, all inside a ``search`` span, each stage inside
+the span named first (profiling.span: recorded only while spans are
+enabled):
 
-  1. rotate the queries and rank every centroid by fp32 distance (one
-     bf16 pass at ``rank_precision="default"``), or by the annulus lower
-     bound (``probe_rank="annulus"``); the ``probe``
-     best clusters are scanned (stable sort: ties go to the lower cluster
-     id, as with ``lax.top_k``), those ranked [probe_lo, probe) on an
+  1. ``search.rank``: rotate the queries and rank every centroid by fp32
+     distance (one bf16 pass at ``rank_precision="default"``), or by the
+     annulus lower bound (``probe_rank="annulus"``); the ``probe`` best
+     clusters are scanned (stable sort: ties go to the lower cluster id,
+     as with ``lax.top_k``), those ranked [probe_lo, probe) on an
      adaptive escalation;
-  2. quantize the [B, probe] query residuals to 4 bits (ops/quantize.py —
-     the fused CUDA kernel on the GPU, which never materialises the
-     [B, probe, D] f32 residual), nibble-packed when D % 256 == 0 as in
-     the JAX search;
-  3. rough scan: the RaBitQ estimator on every row of every probed
-     cluster (ops/scan_kernel.py — the CUDA kernel on the GPU, on the
-     packed query operand when there is one), lane-folded
-     to the best 2 slot-packed values per (task, slot % 128) by default
+  2. ``search.quantize``: quantize the [B, probe] query residuals to 4
+     bits (ops/quantize.py — the fused CUDA kernel on the GPU, which never
+     materialises the [B, probe, D] f32 residual), nibble-packed when
+     D % 256 == 0 as in the JAX search;
+  3. ``search.scan``: the rough scan, the RaBitQ estimator on every row
+     of every probed cluster (ops/scan_kernel.py — the CUDA kernel on the
+     GPU, on the packed query operand when there is one), lane-folded to
+     the best 2 slot-packed values per (task, slot % 128) by default
      (SearchParams.select_reduce); a row filter's penalty is added in the
      kernel, and forces the fold off;
-  4. select the R lowest rough values exactly (per-task top-R, then a
-     global top-R over the survivors) and decode their rows;
-  5. exact L2 of the candidates' full-precision rows (ops/rerank_kernel.py
-     — the CUDA gather+L2 kernel on the GPU; with ``rerank_bf16`` first
-     its bf16-row instance over every candidate, then the f32 one over
-     the best ``rerank_refine``), merged with the exact distances of the
-     insert memtable's rows, and the final top-k — deduplicated by id
-     when the build spilled rows or a memtable is live.
+  4. ``search.select``: select the R lowest rough values exactly
+     (per-task top-R, then a global top-R over the survivors) and decode
+     their rows;
+  5. ``search.rerank``: exact L2 of the candidates' full-precision rows
+     (ops/rerank_kernel.py — the CUDA gather+L2 kernel on the GPU; with
+     ``rerank_bf16`` first its bf16-row instance over every candidate,
+     then the f32 one over the best ``rerank_refine``), merged with the
+     exact distances of the insert memtable's rows;
+  6. ``search.topk``: the final top-k — deduplicated by id when the
+     build spilled rows or a memtable is live.
 
 Slots past a cluster's size, and tombstoned rows (cdsq +inf), estimate to
 +inf and never survive selection. ``search_adaptive`` escalates the probe
@@ -50,6 +54,7 @@ from rabitq_tpu_torch.ops import (
     rotate,
 )
 from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
+from rabitq_tpu_torch.profiling import span
 
 
 class Candidates(NamedTuple):
@@ -185,41 +190,46 @@ def rough_scan(
     probe, lo, cap, _ = _resolve(index, params)
     pe = probe - lo
     b = queries.shape[0]
-    y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
-    # Both rankings return rank-sorted columns, so [lo:] are exactly the
-    # clusters an escalation adds.
-    cids = _rank_clusters(index, _rank_cdist(index, y, params), probe,
-                          params)[:, lo:]
+    dev = index.codes.device
+    with span("search.rank", dev):
+        y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
+        # Both rankings return rank-sorted columns, so [lo:] are exactly
+        # the clusters an escalation adds.
+        cids = _rank_clusters(index, _rank_cdist(index, y, params), probe,
+                              params)[:, lo:]
     # The JAX gate of the nibble-packed query operand
     # (rabitq_tpu/index/search.py:403).
     qpack = index.dim % 256 == 0
-    qvals, scal = cuda_quantize_residuals(
-        y,
-        index.centroids_rot,
-        cids.contiguous(),
-        index.rand_bias if params.dither else None,
-        pack=qpack,
-    )
-    offsets = index.offsets
-    starts = offsets[cids]  # [B, pe] int32
-    sizes = offsets[cids + 1] - starts
     s = b * pe
-    rough = cuda_rough_scan(
-        index.codes,
-        index.factors,
-        starts.reshape(s).contiguous(),
-        sizes.reshape(s).contiguous(),
-        qvals,
-        scal,
-        cap,
-        fold,
-        qpack,
-        penalty,
-    )
+    with span("search.quantize", dev):
+        qvals, scal = cuda_quantize_residuals(
+            y,
+            index.centroids_rot,
+            cids.contiguous(),
+            index.rand_bias if params.dither else None,
+            pack=qpack,
+        )
+        offsets = index.offsets
+        starts = offsets[cids]  # [B, pe] int32
+        sizes = offsets[cids + 1] - starts
+    with span("search.scan", dev):
+        rough = cuda_rough_scan(
+            index.codes,
+            index.factors,
+            starts.reshape(s).contiguous(),
+            sizes.reshape(s).contiguous(),
+            qvals,
+            scal,
+            cap,
+            fold,
+            qpack,
+            penalty,
+        )
+        n_scanned = sizes.sum(dim=-1, dtype=torch.int64)
     return RoughScan(
         rough=rough.reshape(b, pe * rough.shape[1]),
         starts=starts,
-        n_scanned=sizes.sum(dim=-1, dtype=torch.int64),
+        n_scanned=n_scanned,
     )
 
 
@@ -246,7 +256,9 @@ def estimate_candidates(
     params: SearchParams,
     row_filter: RowFilter | None = None,
 ) -> Candidates:
-    """Stages 1-4: rough scan and exact rerank-candidate selection.
+    """Stages 1-4: rough scan and exact rerank-candidate selection, in a
+    ``search`` span of its own (the store tier's and the sharded path's
+    batch).
 
     The fold gate of rabitq_tpu.index.search.estimate_candidates: on with
     ``select_reduce`` when the capacity exceeds ``fold_depth`` * 128 and
@@ -254,6 +266,16 @@ def estimate_candidates(
     (index/filter.py) forces the fold off, as in JAX, and its penalty goes
     to the scan kernel, so filtered rows estimate to +inf and never take
     a rerank slot."""
+    with span("search", index.codes.device):
+        return _estimate_candidates(index, queries, params, row_filter)
+
+
+def _estimate_candidates(
+    index: RaBitQIndex,
+    queries: torch.Tensor,
+    params: SearchParams,
+    row_filter: RowFilter | None,
+) -> Candidates:
     probe, lo, cap, rerank = _resolve(index, params)
     pe = probe - lo
     depth = effective_fold(cap, max(1, min(2, int(params.fold_depth))))
@@ -270,19 +292,21 @@ def estimate_candidates(
         penalty=None if row_filter is None else row_filter.penalty,
     )
     width = scan.rough.shape[1] // pe
-    lb, flat_idx = _exact_two_stage(scan.rough, pe, width, rerank)
-    task = flat_idx // width  # [B, R] index into the probed clusters
-    base = torch.gather(scan.starts.long(), 1, task)
-    if fold:
-        # Folded values carry their window slot in their low mantissa
-        # bits; the bound with them cleared is the floor-quantized estimate.
-        mask = (1 << fold_slot_bits(cap)) - 1
-        bits = lb.view(torch.int32)
-        pos = base + (bits & mask)  # +inf decodes to slot 0
-        lb = (bits & ~mask).view(torch.float32)
-    else:
-        pos = base + flat_idx % width
-    pos = torch.clamp(pos, max=index.n - 1)  # invalid slots are +inf anyway
+    with span("search.select", index.codes.device):
+        lb, flat_idx = _exact_two_stage(scan.rough, pe, width, rerank)
+        task = flat_idx // width  # [B, R] index into the probed clusters
+        base = torch.gather(scan.starts.long(), 1, task)
+        if fold:
+            # Folded values carry their window slot in their low mantissa
+            # bits; the bound with them cleared is the floor-quantized
+            # estimate.
+            mask = (1 << fold_slot_bits(cap)) - 1
+            bits = lb.view(torch.int32)
+            pos = base + (bits & mask)  # +inf decodes to slot 0
+            lb = (bits & ~mask).view(torch.float32)
+        else:
+            pos = base + flat_idx % width
+        pos = torch.clamp(pos, max=index.n - 1)  # invalid slots are +inf
     return Candidates(pos=pos, lower_bound=lb, n_scanned=scan.n_scanned)
 
 
@@ -419,13 +443,17 @@ def search_with_stats(
             "keep_base=False?): the store tier serves such an index, "
             "through rabitq_tpu_torch.store.search_with_store"
         )
-    cand = estimate_candidates(index, queries, params, row_filter)
-    exact, pos = _exact_rerank(
-        index, _prep_queries(index, queries), cand, params,
-        row_filter=row_filter,
-    )
-    precise = torch.isfinite(exact).sum(dim=1)
-    dists, ids, _ = _top_results(index, exact, pos, params.topk)
+    dev = index.codes.device
+    with span("search", dev):
+        cand = _estimate_candidates(index, queries, params, row_filter)
+        with span("search.rerank", dev):
+            exact, pos = _exact_rerank(
+                index, _prep_queries(index, queries), cand, params,
+                row_filter=row_filter,
+            )
+        with span("search.topk", dev):
+            precise = torch.isfinite(exact).sum(dim=1)
+            dists, ids, _ = _top_results(index, exact, pos, params.topk)
     return dists, ids, SearchStats(rough=cand.n_scanned, precise=precise)
 
 
@@ -533,21 +561,26 @@ def _adaptive_level(
     the dedup drops it. The memtable joins at the first level only: later
     levels merely add candidates. Certifies against all top-probe
     clusters. Returns (dists, pos, safe)."""
-    cand = estimate_candidates(index, queries, params, row_filter)
-    q_pad = _prep_queries(index, queries)
-    exact, pos = _exact_rerank(
-        index, q_pad, cand, params, include_memtable=params.probe_lo == 0,
-        row_filter=row_filter,
-    )
-    dists, _, pos = _top_results(
-        index,
-        torch.cat([prev_dists, exact], dim=1),
-        torch.cat([prev_pos, pos], dim=1),
-        params.topk,
-    )
-    y = rotate(q_pad, index.orthogonal)
-    probe = min(params.probe, index.k)
-    return dists, pos, _certificate_safe(index, y, probe, dists[:, -1], params)
+    dev = index.codes.device
+    with span("search", dev):
+        cand = _estimate_candidates(index, queries, params, row_filter)
+        with span("search.rerank", dev):
+            q_pad = _prep_queries(index, queries)
+            exact, pos = _exact_rerank(
+                index, q_pad, cand, params,
+                include_memtable=params.probe_lo == 0, row_filter=row_filter,
+            )
+        with span("search.topk", dev):
+            dists, _, pos = _top_results(
+                index,
+                torch.cat([prev_dists, exact], dim=1),
+                torch.cat([prev_pos, pos], dim=1),
+                params.topk,
+            )
+        y = rotate(q_pad, index.orthogonal)
+        probe = min(params.probe, index.k)
+        safe = _certificate_safe(index, y, probe, dists[:, -1], params)
+    return dists, pos, safe
 
 
 def search_adaptive(

@@ -13,7 +13,8 @@ one the JAX ground truth can name an id twice, ROADMAP queue 3).
 ``--rerank-bf16`` and ``--rerank-refine`` reach the port's SearchParams
 and report the JAX CLI's recall; ``--select-passes`` (the JAX package's
 TPU-only approximate selection) exits 2; ``train --tree`` trains a
-hierarchical k-means.
+hierarchical k-means. ``--profile`` prints the phases' and the search
+stages' totals.
 """
 
 import importlib
@@ -97,7 +98,7 @@ def test_run_recall_matches_jax_cli(files, caplog, mode):
         assert _reported(got["recall"]) == want
 
 
-def test_port_build_loads_in_jax(files, tmp_path, caplog):
+def test_port_build_loads_in_jax(files, tmp_path, caplog, capsys):
     saved = tmp_path / "port_index"
     port_main(["build", *_index_args(files, saved), "--bits", "4", "--spill",
                "0.2", "--device", "cpu"])
@@ -110,6 +111,14 @@ def test_port_build_loads_in_jax(files, tmp_path, caplog):
     again = port_main(_run_args(files, saved, "--no-fold", "--rerank-kernel",
                                 "--device", "cpu", "--profile"))
     assert again["recall"] == got["recall"]
+    # --profile prints the phases' totals, then the search stages'.
+    out = capsys.readouterr().out
+    for phase in ("load_or_build", "warmup", "search", "recall"):
+        assert f"\n{phase}: " in "\n" + out, out
+    stages = out[out.index("spans over"):]
+    for name in ("search", "search.rank", "search.quantize", "search.scan",
+                 "search.select", "search.rerank", "search.topk"):
+        assert f"  {name}: host " in stages, out
 
 
 @pytest.mark.parametrize("mode", ["adaptive", "annulus", "autotune"])

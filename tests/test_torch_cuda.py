@@ -1015,3 +1015,48 @@ def test_build_index_sharded_on_card_is_bit_equal(dev):
         for f in ("codes", "factors", "offsets", "map_ids", "centroids_rot",
                   "base"):
             assert torch.equal(getattr(a, f), getattr(b, f)), (si, f)
+
+
+@pytest.mark.parametrize("dim,probe,rerank,topk", [(128, 28, 32, 10),
+                                                   (960, 64, 150, 100)])
+def test_stage_spans_cover_the_search_on_card(dev, dim, probe, rerank, topk):
+    """With spans on, the six stages' device ms of a batch sum to within
+    10% of a synchronized event pair around the whole ``search`` call.
+    The card is kept busy ahead of the host (``torch.cuda._sleep``), so
+    the host's time between stages leaves no gap on the device."""
+    from rabitq_tpu_torch import profiling
+
+    stages = ("search.rank", "search.quantize", "search.scan",
+              "search.select", "search.rerank", "search.topk")
+    rng = np.random.default_rng(5)
+    k, n = 256, 60000
+    centers = rng.standard_normal((k, dim)).astype(np.float32)
+    base = (centers[rng.integers(0, k, n)]
+            + 0.3 * rng.standard_normal((n, dim))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, balance=1.5,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    q = torch.from_numpy(base[:2048] + 0.05).to(dev)
+    params = rt.SearchParams(probe=probe, topk=topk, rerank=rerank)
+    want = rt.search(idx, q, params)
+    profiling.SPANS.clear()
+    profiling.enable()
+    try:
+        for _ in range(3):
+            torch.cuda._sleep(50_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            got = rt.search(idx, q, params)
+            b.record()
+            torch.cuda.synchronize()
+            whole = a.elapsed_time(b)
+            (batch,) = profiling.SPANS.batches(last=1)
+            total = sum(batch[s][1] for s in stages)
+            assert 0.9 * whole <= total <= batch["search"][1] + 1e-3, (
+                whole, batch)
+            assert batch["search"][1] <= whole + 1e-3
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+    finally:
+        profiling.disable()
+        profiling.SPANS.clear()
