@@ -7,7 +7,7 @@ Phases, one line each or more (a phase that fails raises; the exit code is
 then non-zero and no result line is printed):
 
   1. [env]    torch/CUDA versions and the card's name and power limit;
-  2. [build]  nvcc compiles the four kernel sources of
+  2. [build]  nvcc compiles the five kernel sources of
      rabitq_tpu_torch/csrc/ for sm_90a at once (time, ptxas usage);
   3. [kernel] each kernel against its plain PyTorch twin on the card,
      beside the kernel's bound; kernels are timed by device time with the
@@ -48,6 +48,13 @@ then non-zero and no result line is printed):
        positions outside [0, N), its device time with the L2 cold beside
        its bound (distinct rows at 2 D bytes) and the f32 instance's time
        on the f32 base at the same positions;
+       select (the exact top-R and slot decode of the select stage) at the
+       sift cell's shape (B 8192, 28 x 256, R 32), the gist cell's (B
+       1024, 64 x 256, R 150) and a streamed one (B 1024, 384 x 256, R
+       150) on folded rough values: (lower bound, position) pairs equal to
+       its plain version's, its device time with the L2 cold beside its
+       byte bound, the plain version's time and the two torch.topk calls
+       it replaced (device, L2 cold);
   4. [int4]   rabitq_tpu_torch.tools.int4probe.run (int4_dot_direct and
      int4_dot_staged equal to the twin and numpy), then both kernels
      (device time, L2 cold), the twin and torch._int_mm on the unpacked
@@ -282,7 +289,7 @@ MIN_RECALL = 0.93
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core operations
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize")
+KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize", "select")
 # Checked scan calls profiled a shape, and the record_function labels that
 # mark the scan wrapper's call and the selection in a profiled search batch.
 SCAN_PROFILED_CALLS = 5
@@ -291,6 +298,7 @@ SELECT_STAGE = "chip_smoke: selection stage"
 ESTIMATE_STAGE = "chip_smoke: estimate stage"  # a store-tier batch's
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 GATHER_KERNEL = "gather_l2_kernel"
+SELECT_KERNEL = "select_kernel"
 # The gather_l2 instances' row types, template arguments in their names.
 GATHER_BF16, GATHER_F32 = "Bf16Rows", "F32Rows"
 RERANK_STAGE = "chip_smoke: rerank stage"
@@ -666,12 +674,13 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
     and glue ms (the other kernels launched in the wrapper), the rerank's
     gather_l2 kernel ms (one launch), the quantize kernel ms (one launch),
     the ms and launches of torch's elementwise kernels, the selection
-    stage's ms with those of its per-task and its global top-k, the device
-    ops of the batch and its device busy ms."""
+    stage's ms (its one select kernel, read by name: the profiler does not
+    tie a kernel launched through ctypes to its range), the device ops of
+    the batch and its device busy ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
-    wrapper, select = tsearch.cuda_rough_scan, tsearch._exact_two_stage
+    wrapper, select = tsearch.cuda_rough_scan, tsearch.cuda_select_candidates
 
     def staged(*args):
         with record_function(SCAN_STAGE):
@@ -682,7 +691,8 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
             return select(*args)
 
     torch.cuda.synchronize()
-    tsearch.cuda_rough_scan, tsearch._exact_two_stage = staged, selecting
+    tsearch.cuda_rough_scan, tsearch.cuda_select_candidates = (staged,
+                                                               selecting)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -691,7 +701,8 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        tsearch.cuda_rough_scan, tsearch._exact_two_stage = wrapper, select
+        tsearch.cuda_rough_scan, tsearch.cuda_select_candidates = (wrapper,
+                                                                   select)
     dev_ops = device_ops(prof)
     busy_ms = sum(t for _, t, _ in dev_ops)
     top = sorted(dev_ops, key=lambda r: -r[1])[:8]
@@ -725,19 +736,19 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
         raise ProfileLostRecords("profiled batch: no glue kernel under the "
                                  "stage")
     sel = stage_event(prof, SELECT_STAGE)
-    topks = sorted((c for c in sel.cpu_children if c.name == "aten::topk"),
-                   key=lambda c: c.time_range.start)
-    if len(topks) != 2:
-        raise AssertionError(f"selection stage holds {len(topks)} topk calls")
-    per_task, glob = (sum(us for _, us in stage_kernels(c)) / 1e3
-                      for c in topks)
+    if any(c.name == "aten::topk" for c in sel.cpu_children):
+        raise AssertionError("selection stage holds a torch.topk call")
+    select = [(t, c) for k, t, c in dev_ops if SELECT_KERNEL in k]
+    if len(select) != 1 or select[0][1] != 1:
+        raise ProfileLostRecords(f"profiled batch: select kernel launches "
+                                 f"{select}")
     return dict(kernel_ms=scan[0][0], gather_ms=gather[0][0],
                 quantize_ms=quant[0][0],
                 elementwise_ms=sum(t for t, _ in elementwise),
                 elementwise_launches=sum(c for _, c in elementwise),
                 glue_ms=glue / 1e3,
-                select_ms=sum(us for _, us in stage_kernels(sel)) / 1e3,
-                per_task_ms=per_task, global_ms=glob,
+                select_ms=select[0][0]
+                + sum(us for _, us in stage_kernels(sel)) / 1e3,
                 device_ops=sum(c for _, _, c in dev_ops), busy_ms=busy_ms)
 
 
@@ -1132,6 +1143,96 @@ def check_gather_l2_bf16(dev, smi, shape, n, dim, b, r, positions="random"):
                 rows=rows)
 
 
+def select_operands(dev, b, probe, width, slot_bits=9, finite=0.95, seed=0):
+    """Rough values [B, probe * width] as the folded scan writes them:
+    estimates in [1, 4) with a window slot below 300 in their low
+    ``slot_bits`` mantissa bits, a share 1 - ``finite`` of +inf pads; and
+    [B, probe] int32 cluster starts."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = 1.0 + 3.0 * torch.rand((b, probe * width), generator=gen, device=dev)
+    slots = torch.randint(0, 300, v.shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+    v = ((v.view(torch.int32) & ~((1 << slot_bits) - 1)) | slots).view(
+        torch.float32)
+    v[torch.rand(v.shape, generator=gen, device=dev) >= finite] = torch.inf
+    starts = torch.randint(0, 999_000, (b, probe), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return v, starts
+
+
+def assert_same_candidates(got, want):
+    """Equal (lower bound bits, position) multisets, row by row, of two
+    (pos, lower_bound) selections: the kernel writes its candidates in
+    flat order, the plain version in value order."""
+    (pos_g, lb_g), (pos_w, lb_w) = (
+        (p.cpu().numpy(), lb.cpu().numpy().view(np.int32)) for p, lb in
+        (got, want))
+    if pos_g.shape != pos_w.shape:
+        raise AssertionError(f"shapes {pos_g.shape} != {pos_w.shape}")
+    for a, b in ((pos_g, lb_g), (pos_w, lb_w)):
+        order = np.lexsort((a, b), axis=1)
+        a[...] = np.take_along_axis(a, order, 1)
+        b[...] = np.take_along_axis(b, order, 1)
+    np.testing.assert_array_equal(lb_g, lb_w)
+    np.testing.assert_array_equal(pos_g, pos_w)
+
+
+def topk_pair(rough, probe, width, r):
+    """The two torch.topk calls the select stage made before its kernel:
+    a per-task top-min(R, width), then a global top-R of the survivors
+    (the kernel's library yardstick; the port no longer calls it)."""
+    b, m = rough.shape[0], min(r, width)
+    vt, _ = torch.topk(rough.reshape(b, probe, width), m, dim=-1,
+                       largest=False)
+    return torch.topk(vt.reshape(b, probe * m), r, dim=-1, largest=False)
+
+
+def check_select(dev, smi, label, b, probe, width, r, slot_bits=9):
+    """The select kernel against its plain version on folded rough values
+    (select_operands): equal (lower bound, position) pairs; its device
+    time with the L2 cold beside its bound (one read of the rough values
+    and the starts, the [B, R] output), the plain version's time (CUDA
+    events) and the two torch.topk calls it replaced (device, L2 cold)."""
+    from rabitq_tpu_torch.ops import (
+        cuda_select_candidates,
+        select_candidates_reference,
+    )
+
+    rough, starts = select_operands(dev, b, probe, width, slot_bits)
+    n_rows = 1_000_000
+
+    def call():
+        return cuda_select_candidates(rough, starts, width, r, slot_bits,
+                                      n_rows)
+
+    def plain():
+        return select_candidates_reference(rough, starts, width, r,
+                                           slot_bits, n_rows)
+
+    before = cuda_select_candidates.launches_streamed
+    got = call()
+    streamed = cuda_select_candidates.launches_streamed - before
+    assert_same_candidates(got, plain())
+    del got
+    kernel_ms = retry_lost_records(
+        lambda: cold_device_ms(call, SELECT_KERNEL), f"select {label}")
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = retry_lost_records(lambda: device_ms_by_kernel(
+        lambda: topk_pair(rough, probe, width, r), cold=True)[0],
+        f"select {label} topk")
+    gb = (4 * rough.numel() + 4 * starts.numel() + 12 * b * r) / 1e9
+    bound_ms = gb / HBM_BYTES_PER_S * 1e12
+    log(f"[kernel select {label}] B={b} {probe} x {width} R={r} slot bits "
+        f"{slot_bits} ({'streamed' if streamed else 'resident'}): (lb, "
+        f"pos) pairs equal to the plain version's; kernel {kernel_ms:.4f} "
+        f"ms (device, L2 cold), plain version {plain_ms:.4f} ms, the two "
+        f"torch.topk calls {library_ms:.4f} ms (device, L2 cold); reads+"
+        f"writes {gb:.4f} GB, bound {bound_ms:.4f} ms by bytes, kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes", streamed=streamed)
+
+
 def int4_phase(dev, smi):
     """The int4 probe, then both kernels exactly against numpy at the
     probe shape and a scan-window shape: device time with the L2 cold
@@ -1287,8 +1388,7 @@ def run_search(rt, index, qd, truth, params, label, smi):
         f"distinct probed rows, {scan['gb']:.4f} GB; stage at "
         f"{100 * scan['bound_ms'] / scan['stage_ms']:.1f}%, kernel at "
         f"{100 * scan['bound_ms'] / scan['kernel_ms']:.1f}% of bound), "
-        f"selection stage {scan['select_ms']:.4f} ms (per-task top-k "
-        f"{scan['per_task_ms']:.4f}, global top-k {scan['global_ms']:.4f}), "
+        f"selection stage {scan['select_ms']:.4f} ms (the select kernel), "
         f"{scan['device_ops']} device ops, {scan['tasks']} tasks, groups "
         f"per cluster max {scan['groups_max']} mean "
         f"{scan['groups_mean']:.2f}; gather_l2 kernel {scan['gather_ms']:.4f} "
@@ -1318,11 +1418,9 @@ def log_fold_pair(label, probe, on, off, smi):
         f"ms/batch {pair('{:.3f}', lambda r: r['device_ms'])}; host enqueue "
         f"ms/batch {pair('{:.3f}', lambda r: r['enqueue_ms'])}; QPS "
         f"{pair('{:.1f}', lambda r: r['qps'])}; in one profiled batch: "
-        f"selection stage ms {pair('{:.4f}', lambda r: r['scan']['select_ms'])}"
-        f" = per-task top-k "
-        f"{pair('{:.4f}', lambda r: r['scan']['per_task_ms'])} + global "
-        f"top-k {pair('{:.4f}', lambda r: r['scan']['global_ms'])} (+ index "
-        f"math); rough_scan stage ms "
+        f"selection stage ms (the select kernel) "
+        f"{pair('{:.4f}', lambda r: r['scan']['select_ms'])}; rough_scan "
+        f"stage ms "
         f"{pair('{:.4f}', lambda r: r['scan']['stage_ms'])}, kernel ms "
         f"{pair('{:.4f}', lambda r: r['scan']['kernel_ms'])}, bound ms "
         f"{pair('{:.4f}', lambda r: r['scan']['bound_ms'])}; gather_l2 "
@@ -1377,7 +1475,7 @@ def check_results(base, flat_q, res, cfg, label, nb, min_recall):
             f"{label}: recall@{topk} {res['recall']:.4f} < {min_recall}")
     counts = res["counts"]
     if not (counts["quantize"] == counts["rough_scan"] == counts["gather_l2"]
-            == counts["rough_scan calls"] == nb
+            == counts["select"] == counts["rough_scan calls"] == nb
             and counts["rough_scan qpack"] == (nb if cfg["qpack"] else 0)):
         raise AssertionError(f"{label}: search_many of {nb} batches: {counts}")
 
@@ -1708,7 +1806,8 @@ def store_pass(rt, lean, store, sift, label, batches=None):
         del store.get_rows
     nb = qd.shape[0]
     if not (counts["rough_scan calls"] == counts["quantize"]
-            == counts["rough_scan"] == nb and counts["gather_l2"] == 0):
+            == counts["rough_scan"] == counts["select"] == nb
+            and counts["gather_l2"] == 0):
         raise AssertionError(f"[{label}] launches {counts}")
     dists = np.concatenate([d for d, _ in outs])
     ids = np.concatenate([i for _, i in outs])
@@ -2296,7 +2395,8 @@ def timed_search_many(rt, index, qd, params, row_filter=None):
 def assert_path_launches(counts, label, penalty=False, qpack=None):
     """The search kernels each launched once a scan call in the run."""
     calls = counts["rough_scan calls"]
-    want = {"quantize": calls, "rough_scan": calls, "gather_l2": calls}
+    want = {"quantize": calls, "rough_scan": calls, "gather_l2": calls,
+            "select": calls}
     if penalty:
         want["rough_scan penalty"] = calls
     if qpack is not None:
@@ -3397,24 +3497,29 @@ def rerank_bf16_phase(rt, dev, smi, label, path, budgets):
     return runs, copy_gb
 
 
-def device_ms_by_kernel(fn, calls=10):
+def device_ms_by_kernel(fn, calls=10, cold=False):
     """fn() ``calls`` times back to back under the profiler (its inputs
-    warm in the L2, as a search batch finds them): the mean device ms of a
-    call and {kernel name: ms a call}. CUPTI drops the records of a call
-    or two: each kernel's time a launch is averaged over the records kept,
-    times its launches a call (its records over the calls kept, read from
-    the kernel with the fewest records); fewer than calls - 2 kept raise
-    ProfileLostRecords."""
+    warm in the L2, as a search batch finds them; with ``cold`` each call
+    after a read that evicts the L2, whose events are left out): the mean
+    device ms of a call and {kernel name: ms a call}. CUPTI drops the
+    records of a call or two: each kernel's time a launch is averaged over
+    the records kept, times its launches a call (its records over the
+    calls kept, read from the kernel with the fewest records); fewer than
+    calls - 2 kept raise ProfileLostRecords."""
     from torch.profiler import ProfilerActivity, profile
 
+    flush, flush_keys = l2_flush() if cold else (None, set())
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if cold:
+                flush.sum()
             fn()
         torch.cuda.synchronize()
     ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+           for e in prof.key_averages()
+           if e.self_device_time_total > 0 and e.key not in flush_keys]
     kept = min((c for _, _, c in ops), default=0)
     if kept < calls - 2:
         raise ProfileLostRecords(f"{calls} calls: "
@@ -3663,6 +3768,9 @@ def main() -> int:
                                               128, 2048, 32,
                                               positions="clusters"),
     }
+    selects = {label: check_select(dev, smi, label, *shape) for label, shape in
+               (("sift", (8192, 28, 256, 32)), ("gist", (1024, 64, 256, 150)),
+                ("blobs streamed", (1024, 384, 256, 150)))}
     torch.cuda.empty_cache()
 
     # 4. The int4 probe.
@@ -3770,7 +3878,7 @@ def main() -> int:
                 + gist_off["counts"][name]}
 
     def in_search(run, keys=("stage_ms", "kernel_ms", "glue_ms", "bound_ms",
-                             "select_ms", "per_task_ms", "global_ms",
+                             "select_ms",
                              "device_ops")):
         return {key: run["scan"][key] for key in keys}
 
@@ -3868,6 +3976,21 @@ def main() -> int:
              for path, runs in (("gist p80", gist_bf16),
                                 ("sift p28", sift_bf16))
              for v, r in runs.items()}},
+        {"name": "select_candidates", "route": "cuda",
+         "source": "rabitq_tpu_torch/csrc/select.cu",
+         "replaces": "none: the select stage's two torch.topk calls and "
+                     "slot decode (lax.top_k, _exact_two_stage in "
+                     "rabitq_tpu/index/search.py)",
+         **launches("select"),
+         "launches_streamed": launches("select streamed"),
+         **{key: selects["sift"][key] for key in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+         "operands": "sift cell shape (B 8192, 28 x 256, R 32, folded); ms "
+                     "= device time with the L2 cold; library_ms = the two "
+                     "torch.topk calls it replaced",
+         "other_shapes": {k: v for k, v in selects.items() if k != "sift"},
+         "in_search": {label: in_search(run, ("select_ms",))
+                       for label, run in search_runs}},
         {"name": "int4_dot_direct", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
          "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"],

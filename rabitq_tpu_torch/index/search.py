@@ -20,9 +20,9 @@ enabled):
      the best 2 slot-packed values per (task, slot % 128) by default
      (SearchParams.select_reduce); a row filter's penalty is added in the
      kernel, and forces the fold off;
-  4. ``search.select``: select the R lowest rough values exactly
-     (per-task top-R, then a global top-R over the survivors) and decode
-     their rows;
+  4. ``search.select``: select the R lowest rough values exactly and
+     decode their rows (ops/select_kernel.py — one CUDA kernel on the GPU,
+     a radix select of each query's row fused with the slot decode);
   5. ``search.rerank``: exact L2 of the candidates' full-precision rows
      (ops/rerank_kernel.py — the CUDA gather+L2 kernel on the GPU; with
      ``rerank_bf16`` first its bf16-row instance over every candidate,
@@ -50,6 +50,7 @@ from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
     cuda_quantize_residuals,
     cuda_rough_scan,
+    cuda_select_candidates,
     pairwise_l2sq,
     rotate,
 )
@@ -233,23 +234,6 @@ def rough_scan(
     )
 
 
-def _exact_two_stage(
-    rough: torch.Tensor, probe: int, width: int, rerank: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-R of [B, probe*width]: any value in the global top-R ranks
-    <= R within its own task, so a per-task top-min(R, width) followed by
-    a global top-R over the survivors returns exactly the global top-R
-    values. Returns (lower bounds [B, R], flat indices [B, R])."""
-    b = rough.shape[0]
-    m = min(rerank, width)
-    vt, ji = torch.topk(rough.reshape(b, probe, width), m, dim=-1, largest=False)
-    flat = (
-        torch.arange(probe, device=rough.device)[None, :, None] * width + ji
-    ).reshape(b, probe * m)
-    lb, sel = torch.topk(vt.reshape(b, probe * m), rerank, dim=-1, largest=False)
-    return lb, torch.gather(flat, 1, sel)
-
-
 def estimate_candidates(
     index: RaBitQIndex,
     queries: torch.Tensor,
@@ -293,20 +277,13 @@ def _estimate_candidates(
     )
     width = scan.rough.shape[1] // pe
     with span("search.select", index.codes.device):
-        lb, flat_idx = _exact_two_stage(scan.rough, pe, width, rerank)
-        task = flat_idx // width  # [B, R] index into the probed clusters
-        base = torch.gather(scan.starts.long(), 1, task)
-        if fold:
-            # Folded values carry their window slot in their low mantissa
-            # bits; the bound with them cleared is the floor-quantized
-            # estimate.
-            mask = (1 << fold_slot_bits(cap)) - 1
-            bits = lb.view(torch.int32)
-            pos = base + (bits & mask)  # +inf decodes to slot 0
-            lb = (bits & ~mask).view(torch.float32)
-        else:
-            pos = base + flat_idx % width
-        pos = torch.clamp(pos, max=index.n - 1)  # invalid slots are +inf
+        # One kernel launch on the card (csrc/select.cu): a radix select
+        # of each query's row fused with the slot decode, bound by one
+        # read of the rough values; the candidates come in task order.
+        pos, lb = cuda_select_candidates(
+            scan.rough, scan.starts, width, rerank,
+            fold_slot_bits(cap) if fold else 0, index.n,
+        )
     return Candidates(pos=pos, lower_bound=lb, n_scanned=scan.n_scanned)
 
 

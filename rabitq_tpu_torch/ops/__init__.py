@@ -21,6 +21,10 @@ from rabitq_tpu_torch.ops.scan_kernel import (
     cuda_rough_scan,
     rough_scan_reference,
 )
+from rabitq_tpu_torch.ops.select_kernel import (
+    cuda_select_candidates,
+    select_candidates_reference,
+)
 
 __all__ = [
     "gen_random_orthogonal",
@@ -36,6 +40,8 @@ __all__ = [
     "rough_scan_reference",
     "cuda_gather_l2",
     "gather_l2_reference",
+    "cuda_select_candidates",
+    "select_candidates_reference",
     "pack_int4",
     "unpack_int4",
     "int4_dot_reference",

@@ -331,9 +331,10 @@ def stage(name: str, device):
 
 def run_captured(fn):
     """fn() with the number of calls it made to the search module's
-    rough_scan stage, and the launches of the three search kernels (and
-    the scan's in qpack mode and with the penalty, and the gather_l2
-    kernel's bf16-row instance apart from its f32 one), counted over fn() and
+    rough_scan stage, and the launches of the four search kernels (and
+    the scan's in qpack mode and with the penalty, the gather_l2 kernel's
+    bf16-row instance apart from its f32 one, and the select kernel's on
+    rows too long for shared memory), counted over fn() and
     read just after it (after a synchronize on the card). The kernels'
     counts are set to 0 just before fn(); a run_captured inside fn()
     leaves them running and reports its own share."""
@@ -341,6 +342,7 @@ def run_captured(fn):
         cuda_gather_l2,
         cuda_quantize_residuals,
         cuda_rough_scan,
+        cuda_select_candidates,
     )
 
     counters = {
@@ -350,6 +352,8 @@ def run_captured(fn):
         "rough_scan penalty": (cuda_rough_scan, "launches_penalty"),
         "gather_l2": (cuda_gather_l2, "launches"),
         "gather_l2 bf16": (cuda_gather_l2, "launches_bf16"),
+        "select": (cuda_select_candidates, "launches"),
+        "select streamed": (cuda_select_candidates, "launches_streamed"),
     }
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     stage_fn = tsearch.rough_scan
