@@ -3,7 +3,7 @@
 One command runs one cell of ``BENCHMARK.json`` once, on the machine it
 is started on:
 
-    python3 -m benchmark.run --workload sift1m.batch --seed 7 --seconds 10 --trace 0
+    python3 -m benchmark.run --workload sift1m.b16384 --seed 7 --seconds 10 --trace 0
 
 Everything is found by name: a configuration in ``configs/<config>.json``,
 a traffic mix in ``traffic/<traffic>.json``, a cell's correctness limits

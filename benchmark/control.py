@@ -16,7 +16,7 @@ A step that returns its state unchanged, and the exchange between chips,
 are faults this system cannot have: a search keeps no state from batch to
 batch, and a cell runs on one card.
 
-    python3 -m benchmark.control --workload sift1m.batch --seeds 1,2,3 \\
+    python3 -m benchmark.control --workload sift1m.b16384 --seeds 1,2,3 \\
         --control-seeds 1,2,3 --fault-seeds 1,2,3 --seconds 2
 
 prints one JSON line a (seed, arm) and appends them to

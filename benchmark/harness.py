@@ -11,8 +11,11 @@ The window is a closed loop over the query pool, batch after batch, with
 at most ``in_flight`` batches in flight: the host enqueues batch n+1 while
 batch n runs and waits for batch n's ids before it starts batch n+2. Each
 batch's ids and distances are copied behind it to pinned host memory; a
-query counts when its ids are on the host. After ``seconds`` no batch
-starts, and the window ends when the last one's ids are on the host.
+query counts when its ids are on the host. The harness keeps batch n's
+answer for the comparison only once batch n+2 is enqueued, so that its own
+bookkeeping, which grows with batch and topk, never delays a call and so
+never shortens a batch's latency by the host's speed. After ``seconds`` no
+batch starts, and the window ends when the last one's ids are on the host.
 
 With ``trace`` on, ``trace_batches`` more batches of the same loop run
 under torch.profiler after the window; the per-layer readers take what
@@ -131,12 +134,15 @@ class Loop:
         self.search = search_fn
         b, k = state.batches.shape[1], state.params.topk
         pin = state.device.type == "cuda"
+        # One slot more than in flight: a batch's answer is read after the
+        # next batch is enqueued, whose copy must not land on it.
+        self.n_slots = in_flight + 1
         self.slots = [(torch.empty((b, k), dtype=torch.int64, pin_memory=pin),
                        torch.empty((b, k), dtype=torch.float32,
                                    pin_memory=pin))
-                      for _ in range(in_flight)]
+                      for _ in range(self.n_slots)]
         self.events = [torch.cuda.Event() if pin else None
-                       for _ in range(in_flight)]
+                       for _ in range(self.n_slots)]
         self.n = 0  # batches started so far, warm-up included
 
     def run(self, *, seconds=None, batches=None, answers=None, stamps=None):
@@ -154,10 +160,11 @@ class Loop:
         t0 = time.perf_counter()
         deadline = None if seconds is None else t0 + seconds
         stop = False
+        seen_slot = None  # (pool slice, slot) of the batch last seen, unread
         while True:
             while not stop and len(flight) < self.in_flight:
                 n = self.n
-                slot = n % self.in_flight
+                slot = n % self.n_slots
                 a = now_ns()
                 t = time.perf_counter()
                 d, i = self.search(s.index, s.batches[n % nb], s.params)
@@ -173,6 +180,10 @@ class Loop:
                 flight.append((n, slot, t, t1))
                 self.n += 1
                 stop = batches is not None and self.n - first >= batches
+            if seen_slot is not None:
+                ids_h, d_h = self.slots[seen_slot[1]]
+                answers.add(seen_slot[0], ids_h.numpy(), d_h.numpy())
+                seen_slot = None
             if not flight:
                 break
             n, slot, t, t1 = flight.pop(0)
@@ -184,8 +195,7 @@ class Loop:
                 stamps.append(("wait", a, now_ns()))
             done.append((n % nb, t, t1, seen))
             if answers is not None:
-                ids_h, d_h = self.slots[slot]
-                answers.add(n % nb, ids_h.numpy(), d_h.numpy())
+                seen_slot = (n % nb, slot)
             if deadline is not None and seen >= deadline:
                 stop = True
         sent = (self.n - first) * s.batches.shape[1]

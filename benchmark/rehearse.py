@@ -4,7 +4,7 @@ traced batches, the metric readers and the result line of a real run.
 It measures nothing: the settings below exist only here, and the measured
 command (benchmark.run) still refuses to run without a card.
 
-    python3 -m benchmark.rehearse [--workload sift1m.batch] [--trace 1]
+    python3 -m benchmark.rehearse [--workload sift1m.b16384] [--trace 1]
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Run one cell of BENCHMARK.json once, on this machine's card.
 
-    python3 -m benchmark.run --workload sift1m.batch --seed 7 --seconds 10 --trace 0
+    python3 -m benchmark.run --workload sift1m.b16384 --seed 7 --seconds 10 --trace 0
 
 Prints progress to stderr, then the compared numbers beside their limits
 as stderr's last lines, and the result as one JSON line, stdout's last.

@@ -19,7 +19,7 @@ import torch
 
 from benchmark import control, rehearse, spec
 
-CELLS = ("sift1m.batch", "gist1m.batch")
+CELLS = ("sift1m.b16384", "gist1m.b8192")
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
