@@ -259,11 +259,19 @@ def split_oversized_clusters(
     breaks ties toward lower cluster ids = nearer segments (stable sort).
 
     Returns (new_offsets [k'+1], seg_src [k'] source cluster per segment).
+    Each call is counted on the function's attributes, so that a build's
+    split can be read after it: ``calls``, ``clusters_split`` (clusters
+    cut into two or more segments, summed over the calls), and
+    ``k_before`` / ``k_after`` of the last call.
     """
     sizes = offsets[1:] - offsets[:-1]
     k = sizes.shape[0]
     segs = np.maximum(1, -(-sizes // cap))  # ceil, empties keep 1 slot
     seg_src = np.repeat(np.arange(k, dtype=np.int32), segs)
+    split_oversized_clusters.calls += 1
+    split_oversized_clusters.clusters_split += int((segs > 1).sum())
+    split_oversized_clusters.k_before = k
+    split_oversized_clusters.k_after = int(segs.sum())
     new_offsets = np.empty(int(segs.sum()) + 1, np.int32)
     new_offsets[0] = 0
     at = 1
@@ -273,6 +281,11 @@ def split_oversized_clusters(
             new_offsets[at] = min(a + (j + 1) * cap, b)
             at += 1
     return new_offsets, seg_src
+
+
+split_oversized_clusters.calls = 0
+split_oversized_clusters.clusters_split = 0
+split_oversized_clusters.k_before = split_oversized_clusters.k_after = 0
 
 
 def _spill_admit(

@@ -7,9 +7,9 @@ enabled):
   1. ``search.rank``: rotate the queries and rank every centroid by fp32
      distance (one bf16 pass at ``rank_precision="default"``), or by the
      annulus lower bound (``probe_rank="annulus"``); the ``probe`` best
-     clusters are scanned (stable sort: ties go to the lower cluster id,
-     as with ``lax.top_k``), those ranked [probe_lo, probe) on an
-     adaptive escalation;
+     clusters are scanned (stable sort, in a ``search.rank.sort`` span of
+     its own: ties go to the lower cluster id, as with ``lax.top_k``),
+     those ranked [probe_lo, probe) on an adaptive escalation;
   2. ``search.quantize``: quantize the [B, probe] query residuals to 4
      bits (ops/quantize.py — the fused CUDA kernel on the GPU, which never
      materialises the [B, probe, D] f32 residual), nibble-packed when
@@ -173,7 +173,8 @@ def _rank_clusters(
         key = cdist
     else:
         raise ValueError(f"unknown probe_rank {params.probe_rank!r}")
-    return torch.sort(key, dim=-1, stable=True).indices[:, :probe]
+    with span("search.rank.sort", key.device):
+        return torch.sort(key, dim=-1, stable=True).indices[:, :probe]
 
 
 def rough_scan(

@@ -72,6 +72,25 @@ def test_build_matches_jax(bits, spill, metric, skewed):
         assert got.k > centers.shape[0]  # the split happened in both
 
 
+def test_split_is_counted():
+    """A build whose balancer cannot spread a Zipf pile splits clusters and
+    counts it on split_oversized_clusters: one call, the clusters cut, k
+    before and after; a build that needs no split leaves the counts."""
+    f = tbuild.split_oversized_clusters
+    rng = np.random.default_rng(7)
+    base, centers = make_clustered_dataset(rng, n=3000, dim=64, k=16)
+    before = (f.calls, f.clusters_split)
+    idx = rt.build_index(base, centers, device="cpu", bits=4, balance=1.5)
+    assert idx.k == 16 and (f.calls, f.clusters_split) == before
+    base, centers = _skewed(rng, 4000, 64)
+    idx = rt.build_index(base, centers, device="cpu", bits=4, balance=1.5)
+    cut = f.clusters_split - before[1]
+    assert f.calls == before[0] + 1
+    assert (f.k_before, f.k_after) == (16, idx.k)
+    # Each cluster cut adds one segment or more.
+    assert 1 <= cut <= idx.k - 16
+
+
 def test_build_matches_jax_at_960d():
     """The GIST width: dim 960 pads to 1024 in both packages. With 1024
     coordinates a row, more rows hold one coordinate within f32 rounding

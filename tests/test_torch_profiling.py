@@ -4,7 +4,8 @@ Spans are off by default, and under a bare torch.profiler session, and
 cost nothing then (no record, no CUDA event, no ``record_function``
 range); they go on after ``enable()`` and inside ``device_trace``. Each
 ``search`` call is one batch holding the six stage spans, nested under its
-``search`` span, and so is each ``estimate_candidates`` call and each
+``search`` span, with the ranking's sort span nested under
+``search.rank``, and so is each ``estimate_candidates`` call and each
 adaptive level; the buffer stays bounded; the search's results are the
 same bits with spans on and off; a ``device_trace`` around a search holds
 the stages' ranges. The benchmark's stage readers (benchmark/stages.py)
@@ -30,6 +31,9 @@ from rabitq_tpu_torch import profiling
 
 STAGES = ["search.rank", "search.quantize", "search.scan", "search.select",
           "search.rerank", "search.topk"]
+# A search batch's spans in the order they open: the ranking's sort has a
+# span of its own inside ``search.rank``.
+BATCH = (["search", "search.rank", "search.rank.sort"] + STAGES[1:])
 
 
 @pytest.fixture
@@ -179,11 +183,32 @@ def test_search_bit_identical_with_spans_on(spans, dim, spill):
     spans.disable()
     assert torch.equal(d0, d1) and torch.equal(i0, i1)
     (batch,) = spans.batches()
-    assert list(batch) == ["search"] + STAGES
+    assert list(batch) == BATCH
     assert all(dev is None and host > 0 for host, dev in batch.values())
     by = {s.name: s for s in spans.spans()}
-    assert {s.parent for s in by.values() if s.name != "search"} == {
+    assert {s.parent for s in by.values() if s.name in STAGES} == {
         by["search"].id}
+    assert by["search.rank.sort"].parent == by["search.rank"].id
+
+
+def test_rank_sort_span_nests_in_rank(spans, counted):
+    """``search.rank.sort`` opens and closes inside ``search.rank`` of the
+    same batch; with the spans off it records nothing, opens no range and
+    makes no event."""
+    idx, q = _index(64, 0.0)
+    params = rt.SearchParams(probe=4, topk=5, rerank=20)
+    rt.search(idx, q, params)
+    assert not spans._held and counted.ranges == []
+    assert counted.events() == 0
+    spans.enable()
+    rt.search(idx, q, params)
+    spans.disable()
+    by = {s.name: s for s in spans.spans()}
+    rank, sort = by["search.rank"], by["search.rank.sort"]
+    assert sort.parent == rank.id and sort.batch == rank.batch
+    assert rank.start_ns <= sort.start_ns <= sort.end_ns <= rank.end_ns
+    assert counted.ranges[:3] == ["search", "search.rank",
+                                  "search.rank.sort"]
 
 
 def test_search_adaptive_levels_are_batches(spans):
@@ -194,7 +219,7 @@ def test_search_adaptive_levels_are_batches(spans):
     spans.disable()
     levels = spans.batches()
     assert len(levels) >= 1 + (used > 2)
-    assert all(list(b) == ["search"] + STAGES for b in levels)
+    assert all(list(b) == BATCH for b in levels)
 
 
 def test_estimate_candidates_alone_is_a_batch(spans):
@@ -204,7 +229,7 @@ def test_estimate_candidates_alone_is_a_batch(spans):
                                                    rerank=20))
     spans.disable()
     (batch,) = spans.batches()
-    assert list(batch) == ["search"] + STAGES[:4]
+    assert list(batch) == BATCH[:6]
 
 
 def test_device_trace_holds_the_stage_ranges(spans, tmp_path):
@@ -260,7 +285,7 @@ def test_stage_pass_reruns_the_traced_batches_with_spans_on(
     assert stages.stage_pass(ctx) is None
     ptr = [batches[j].data_ptr() for j in (3, 4, 3, 4, 0)]
     assert seen == ptr
-    assert [list(b) for b in spans.batches()] == [["search"] + STAGES] * 5
+    assert [list(b) for b in spans.batches()] == [BATCH] * 5
     assert spans.span("search") is profiling._OFF
 
 

@@ -153,6 +153,8 @@ CARD_CASES = {
         256, 28, 301, 150, 0, dict(finite=0.10), 0),
     "streamed (384 x 256, R 150)": (
         64, 384, 256, 150, 10, dict(finite=0.9), 1),
+    "blobs cell, streamed (384 x 256, R 32, folded)": (
+        512, 384, 256, 32, 9, dict(finite=0.9), 1),
     "streamed, unfolded, odd row, 1% finite": (
         16, 97, 301, 150, 0, dict(finite=0.01), 1),
     "R equal to n": (64, 4, 64, 256, 0, dict(finite=0.8), 0),
