@@ -7,7 +7,7 @@ Phases, one line each or more (a phase that fails raises; the exit code is
 then non-zero and no result line is printed):
 
   1. [env]    torch/CUDA versions and the card's name and power limit;
-  2. [build]  nvcc compiles the five kernel sources of
+  2. [build]  nvcc compiles the six kernel sources of
      rabitq_tpu_torch/csrc/ for sm_90a at once (time, ptxas usage);
   3. [kernel] each kernel against its plain PyTorch twin on the card,
      beside the kernel's bound; kernels are timed by device time with the
@@ -55,6 +55,15 @@ then non-zero and no result line is printed):
        its plain version's, its device time with the L2 cold beside its
        byte bound, the plain version's time and the two torch.topk calls
        it replaced (device, L2 cold);
+       probe_rank (the ranking stage's top-probe selection) at the sift
+       cell's shape (B 16384, K 4096, D 128, probe 28), the gist cell's
+       (B 8192, K 4096, D 1024 at the bf16 pass, probe 64) and the blobs
+       cell's (B 8192, K 5327 with 271 duplicated centroid rows, probe
+       384), from the GEMM's terms (fused) and from the finished distance:
+       ids equal to its plain version's (the epilogue and a stable sort)
+       bit for bit; its device time with the L2 cold beside its byte
+       bound, the plain version's and the replaced pairwise_l2sq and
+       torch.sort pair's (device, L2 cold; the GEMM's share beside);
   4. [int4]   rabitq_tpu_torch.tools.int4probe.run (int4_dot_direct and
      int4_dot_staged equal to the twin and numpy), then both kernels
      (device time, L2 cold), the twin and torch._int_mm on the unpacked
@@ -249,6 +258,7 @@ the nvidia-smi name/power-limit line, and last {"ok": true, "device":
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -289,7 +299,8 @@ MIN_RECALL = 0.93
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core operations
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize", "select")
+KERNEL_SOURCES = ("rough_scan", "gather_l2", "int4_dot", "quantize", "select",
+                  "probe_rank")
 # Checked scan calls profiled a shape, and the record_function labels that
 # mark the scan wrapper's call and the selection in a profiled search batch.
 SCAN_PROFILED_CALLS = 5
@@ -299,10 +310,11 @@ ESTIMATE_STAGE = "chip_smoke: estimate stage"  # a store-tier batch's
 SCAN_KERNEL = "rough_scan_kernel"  # within the profiler's demangled name
 GATHER_KERNEL = "gather_l2_kernel"
 SELECT_KERNEL = "select_kernel"
+PROBE_RANK_KERNEL = "probe_rank_kernel"
 # The gather_l2 instances' row types, template arguments in their names.
 GATHER_BF16, GATHER_F32 = "Bf16Rows", "F32Rows"
 RERANK_STAGE = "chip_smoke: rerank stage"
-RANK_STAGE = "chip_smoke: ranking stage"
+RANK_STAGE = "chip_smoke: ranking stage"  # the terms: norms and GEMM
 STAGE_LABELS = (SCAN_STAGE, SELECT_STAGE, ESTIMATE_STAGE, RERANK_STAGE,
                 RANK_STAGE)
 INT4_KERNEL = "int4_dot_kernel"
@@ -352,13 +364,60 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The wait, in seconds, between a profile's start and its work: 0 until a
+# profile loses device records, then raised by retry_lost_records and kept
+# for the profiles after it (settled_profile).
+PROFILE_SETTLE_S = [0.0]
+PROFILE_SETTLE_MAX_S = 8.0
+# The newest settled_profile and the host clock (ns) when its work began.
+LAST_PROFILE = [None, 0]
+
+
+@contextlib.contextmanager
+def settled_profile(cpu=True):
+    """torch.profiler over the CUDA activity (and the CPU's with ``cpu``),
+    whose work starts PROFILE_SETTLE_S after the profile. Late in this
+    script's process a profile has kept no device record of its first
+    kernels (a gist batch's ranking GEMMs, probe_rank and quantize
+    kernels), six profiles running, where a fresh process kept them all:
+    a wait of 0.05-0.8 s inside the profile did not bring them back, one
+    of 3.2-8 s did. profile_timing reads where the records start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        if PROFILE_SETTLE_S[0]:
+            time.sleep(PROFILE_SETTLE_S[0])
+        LAST_PROFILE[:] = [prof, time.time_ns()]
+        yield prof
+
+
+def profile_timing(prof, work_ns):
+    """Where a profile's records start, in ms from ``work_ns`` (the host
+    clock when its work began): the first kernel launch, the first device
+    record kept, and CUPTI's activity buffer requests."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+
+    def first(pick):
+        ts = [e.start_ns() for e in events if pick(e)]
+        return f"{(min(ts) - work_ns) / 1e6:.3f}" if ts else "none"
+
+    buffers = [f"{(e.start_ns() - work_ns) / 1e6:.3f}" for e in events
+               if e.name() == "Activity Buffer Request"]
+    return (f"first launch {first(lambda e: 'LaunchKernel' in e.name())} "
+            f"ms, first device record "
+            f"{first(lambda e: e.device_type() == cuda)} ms, buffer "
+            f"requests at {buffers} ms")
+
+
 def l2_flush():
     """A buffer of L2_FLUSH_BYTES whose sum() evicts the L2, and the keys
     of the device events that sum launches (to leave out of a profile)."""
-    from torch.profiler import ProfilerActivity, profile
-
     flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with settled_profile(cpu=False) as prof:
         flush.sum()
         torch.cuda.synchronize()
     return flush, {e.key for e in prof.key_averages()}
@@ -372,12 +431,10 @@ def cold_device_ms(fn, name=None, calls=COLD_CALLS):
     kernel a call. CUPTI has been seen to drop a record or two of a run,
     so the mean is over the records kept; fewer than calls - 2 raise
     ProfileLostRecords."""
-    from torch.profiler import ProfilerActivity, profile
-
     flush, flush_keys = l2_flush()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with settled_profile(cpu=False) as prof:
         for _ in range(calls):
             flush.sum()
             fn()
@@ -518,12 +575,20 @@ def retry_lost_records(fn, label, attempts=6):
     """fn(), run again (up to ``attempts`` times in all, a second apart)
     while its profile lost device records; every other failure propagates
     at once. CUPTI has been seen to keep only one call's records of a
-    profiled run, or none, three profiles in a row."""
+    profiled run, or none, three profiles in a row, and late in the
+    process none of a profile's first kernels (settled_profile): each
+    retry waits longer inside the profile (at least four times the last
+    wait, up to PROFILE_SETTLE_MAX_S), and the later profiles keep it."""
     for attempt in range(1, attempts + 1):
         try:
             return fn()
         except ProfileLostRecords as e:
-            log(f"[profile {label}] attempt {attempt} lost records: "
+            prof, work_ns = LAST_PROFILE
+            timing = profile_timing(prof, work_ns) if prof else "no profile"
+            PROFILE_SETTLE_S[0] = min(PROFILE_SETTLE_MAX_S,
+                                      max(0.05, 4 * PROFILE_SETTLE_S[0]))
+            log(f"[profile {label}] attempt {attempt} lost records ({timing}; "
+                f"the profiles now wait {PROFILE_SETTLE_S[0]:.3f} s): "
                 f"{str(e)[:300]}")
             torch.cuda.synchronize()
             time.sleep(1.0)
@@ -677,7 +742,7 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
     stage's ms (its one select kernel, read by name: the profiler does not
     tie a kernel launched through ctypes to its range), the device ops of
     the batch and its device busy ms."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     wrapper, select = tsearch.cuda_rough_scan, tsearch.cuda_select_candidates
@@ -694,8 +759,7 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
     tsearch.cuda_rough_scan, tsearch.cuda_select_candidates = (staged,
                                                                selecting)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with settled_profile() as prof:
             t0 = time.perf_counter()
             rt.search(index, q, params, row_filter)
             torch.cuda.synchronize()
@@ -712,7 +776,8 @@ def profile_batch(rt, index, q, params, label, smi, row_filter=None):
          if e.device_type == torch.autograd.DeviceType.CPU),
         key=lambda r: -r[1])[:6]
     log(f"[profile {label}] one batch of {q.shape[0]}: wall {wall_ms:.3f} ms, "
-        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); top: "
+        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+        f"{profile_timing(prof, LAST_PROFILE[1])}; top: "
         + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in top)
         + "; host (self CPU, under the profiler): "
         + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in host_ops)
@@ -831,8 +896,6 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False,
     their profile gives the kernel's device time and the grouping glue's.
     The twin is timed by CUDA events; the bound counts the query bytes
     and the output this mode writes."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rabitq_tpu_torch.ops import (
         cuda_rough_scan,
         pack_query_nibbles,
@@ -867,8 +930,7 @@ def check_rough_scan(smi, label, ops, span, twin_iters, fold, edges=False,
     def profiled_checked_calls():
         nonlocal max_abs_err
         outs = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with settled_profile() as prof:
             for _ in range(SCAN_PROFILED_CALLS):
                 flush.sum()
                 outs.append(cuda_rough_scan(*args, span, fold, qpack))
@@ -931,8 +993,6 @@ def check_scan_penalty(smi, label, ops, span, fold, qpack, density):
     as many without it on the same operands; the kernel's device time of
     each (profile, L2 cold). The twin is timed by CUDA events over the
     call that gives the reference; the bound adds 4 bytes a probed row."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rabitq_tpu_torch.ops import (
         cuda_rough_scan,
         pack_query_nibbles,
@@ -959,8 +1019,7 @@ def check_scan_penalty(smi, label, ops, span, fold, qpack, density):
 
     def profiled(penalty):
         outs = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with settled_profile() as prof:
             for _ in range(SCAN_PROFILED_CALLS):
                 flush.sum()
                 outs.append(cuda_rough_scan(*args, span, fold, qpack,
@@ -1231,6 +1290,88 @@ def check_select(dev, smi, label, b, probe, width, r, slot_bits=9):
         f"{100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by="bytes", streamed=streamed)
+
+
+def probe_rank_operands(dev, b, k, dim, split=0, seed=0):
+    """Rotated queries [B, D] near random centroids [K, D] (f32 normals,
+    each query a centroid plus noise of a third its scale), ``split``
+    centroid rows repeated in the row after them, as a split build's
+    segments repeat their cluster's centroid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randn((k, dim), generator=gen, device=dev)
+    if split:
+        at = torch.randperm(k - 1, generator=gen, device=dev)[:split]
+        c[at + 1] = c[at]
+    near = torch.randint(0, k, (b,), generator=gen, device=dev)
+    y = c[near] + torch.randn((b, dim), generator=gen, device=dev) / 3
+    return y, c
+
+
+def check_probe_rank(dev, smi, label, b, k, dim, probe, precision, split=0):
+    """The probe_rank kernel against its plain version on the terms of
+    probe_rank_operands at ``precision``: ids equal bit for bit, from the
+    terms (fused) and from the finished distance matrix; its device time
+    with the L2 cold beside its bound (one read of the cross term, xx
+    and cc, the [B, probe] ids written), the plain version's (the
+    epilogue, the stable sort and the slice) and the replaced
+    pairwise_l2sq + torch.sort pair's (device, L2 cold), with the terms'
+    (norms and GEMM) beside."""
+    from rabitq_tpu_torch.ops import (
+        cuda_probe_rank,
+        pairwise_l2sq,
+        probe_rank_reference,
+    )
+    from rabitq_tpu_torch.ops.distances import l2sq_epilogue, pairwise_terms
+
+    y, c = probe_rank_operands(dev, b, k, dim, split)
+    xx, xc, cc = terms = pairwise_terms(y, c, precision)
+
+    def call():
+        return cuda_probe_rank(xc, probe, xx, cc)
+
+    def plain():
+        return probe_rank_reference(xc, probe, xx, cc)
+
+    before = (cuda_probe_rank.launches_fused,
+              cuda_probe_rank.launches_streamed)
+    got = call()
+    fused, streamed = (cuda_probe_rank.launches_fused - before[0],
+                       cuda_probe_rank.launches_streamed - before[1])
+    want = plain()
+    if not (torch.equal(got, want) and torch.equal(
+            cuda_probe_rank(l2sq_epilogue(terms), probe), want)):
+        raise AssertionError(f"[kernel probe_rank {label}] ids differ from "
+                             f"the plain version's")
+    del got, want
+    kernel_ms = retry_lost_records(
+        lambda: cold_device_ms(call, PROBE_RANK_KERNEL),
+        f"probe_rank {label}")
+    plain_ms = retry_lost_records(
+        lambda: device_ms_by_kernel(plain, cold=True)[0],
+        f"probe_rank {label} plain")
+    terms_ms = retry_lost_records(
+        lambda: device_ms_by_kernel(
+            lambda: pairwise_terms(y, c, precision), cold=True)[0],
+        f"probe_rank {label} terms")
+    library_ms = retry_lost_records(
+        lambda: device_ms_by_kernel(lambda: torch.sort(
+            pairwise_l2sq(y, c, precision), dim=-1, stable=True),
+            cold=True)[0], f"probe_rank {label} pairwise_l2sq + sort")
+    gb = (4 * b * k + 4 * b + 4 * k + 8 * b * probe) / 1e9
+    bound_ms = gb / HBM_BYTES_PER_S * 1e12
+    log(f"[kernel probe_rank {label}] B={b} K={k} D={dim} probe={probe} "
+        f"{precision} ({split} duplicated centroids; "
+        f"{'fused' if fused else 'not fused'}, "
+        f"{'streamed' if streamed else 'resident'}): ids equal to the plain "
+        f"version's, fused and finished; kernel {kernel_ms:.4f} ms (device, "
+        f"L2 cold), plain version {plain_ms:.4f} ms, pairwise_l2sq + "
+        f"torch.sort {library_ms:.4f} ms (of which the norms and GEMM "
+        f"{terms_ms:.4f}; device, L2 cold); reads+writes {gb:.4f} GB, bound "
+        f"{bound_ms:.4f} ms by bytes, kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f}% of bound [{smi}]")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                terms_ms=terms_ms, bound_ms=bound_ms, bound_by="bytes",
+                streamed=streamed)
 
 
 def int4_phase(dev, smi):
@@ -1709,7 +1850,7 @@ def profile_store_batch(lean, q, params, store, label, smi):
     the kernels launched there (quantize, scan, selection), the device
     busy ms of the whole call (kernels and copies), its wall ms under the
     profiler and the card's idle share of it, 1 - busy / wall."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from rabitq_tpu_torch.store import search_with_store
 
@@ -1723,8 +1864,7 @@ def profile_store_batch(lean, q, params, store, label, smi):
     torch.cuda.synchronize()
     tsearch.estimate_candidates = staged
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with settled_profile() as prof:
             t0 = time.perf_counter()
             search_with_store(lean, q, params, store)
             torch.cuda.synchronize()
@@ -2401,7 +2541,9 @@ def assert_path_launches(counts, label, penalty=False, qpack=None):
         want["rough_scan penalty"] = calls
     if qpack is not None:
         want["rough_scan qpack"] = calls if qpack else 0
-    if not calls or any(counts[k] != v for k, v in want.items()):
+    # probe_rank ranks once a scan call, and once more a certificate.
+    if (not calls or any(counts[k] != v for k, v in want.items())
+            or counts["probe_rank"] < calls):
         raise AssertionError(f"{label}: launches {counts}")
 
 
@@ -2709,7 +2851,7 @@ def certificate_violations(rt, index, q, params):
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     dists, _, safe = tsearch._search_with_certificate(index, q, params)
     y = rotate(tsearch._prep_queries(index, q), index.orthogonal)
-    cids = tsearch._rank_clusters(index, tsearch._rank_cdist(index, y, params),
+    cids = tsearch._rank_clusters(index, tsearch._rank_terms(index, y, params),
                                   params.probe, params)
     probed = torch.zeros((q.shape[0], index.k), dtype=torch.bool,
                          device=q.device).scatter_(1, cids, True)
@@ -2902,7 +3044,8 @@ def assert_shard_launches(counts, s, nb, label, gather=True):
     """Each search kernel launched once a shard a batch (gather_l2 none on
     the store tier)."""
     want = {"rough_scan calls": s * nb, "quantize": s * nb,
-            "rough_scan": s * nb, "gather_l2": s * nb if gather else 0}
+            "rough_scan": s * nb, "probe_rank": s * nb,
+            "gather_l2": s * nb if gather else 0}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"[{label}] launches {counts}, want {want}")
 
@@ -2912,11 +3055,8 @@ def profile_sharded_batch(tp, sidx, mesh, q, params, exact, label, smi):
     busy ms (kernels and copies), the wall ms under the profiler and the
     card's idle share of it; each of the quantize and scan kernels must
     show S launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with settled_profile() as prof:
         t0 = time.perf_counter()
         tp.sharded_search(sidx, q, params, mesh, exact=exact)
         torch.cuda.synchronize()
@@ -3372,7 +3512,7 @@ def profile_stages(rt, index, q, params, stages, label):
     does not tie a kernel launched through ctypes to its range: the
     package's kernels are read by name from the third value) and {kernel
     name: (ms, launches)} of the batch."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
     saved = {name: getattr(tsearch, name) for name in stages.values()}
@@ -3387,8 +3527,7 @@ def profile_stages(rt, index, q, params, stages, label):
     for lbl, name in stages.items():
         setattr(tsearch, name, ranged(lbl, saved[name]))
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with settled_profile() as prof:
             rt.search(index, q, params)
             torch.cuda.synchronize()
     finally:
@@ -3506,12 +3645,10 @@ def device_ms_by_kernel(fn, calls=10, cold=False):
     the records kept, times its launches a call (its records over the
     calls kept, read from the kernel with the fewest records); fewer than
     calls - 2 kept raise ProfileLostRecords."""
-    from torch.profiler import ProfilerActivity, profile
-
     flush, flush_keys = l2_flush() if cold else (None, set())
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with settled_profile(cpu=False) as prof:
         for _ in range(calls):
             if cold:
                 flush.sum()
@@ -3528,6 +3665,21 @@ def device_ms_by_kernel(fn, calls=10, cold=False):
     return sum(by_kernel.values()), by_kernel
 
 
+def profile_ranking(rt, index, q, params, label):
+    """One profiled search batch (profile_stages) with _rank_terms inside
+    RANK_STAGE: the batch's busy ms, its {kernel: (ms, launches)} and the
+    ranking's device ms in it, the terms' kernels under the range plus
+    the one probe_rank launch, read by name (ctypes)."""
+    busy, stage, kernels = profile_stages(
+        rt, index, q, params, {RANK_STAGE: "_rank_terms"}, label)
+    ranked = [(t, c) for k, (t, c) in kernels.items()
+              if PROBE_RANK_KERNEL in k]
+    if len(ranked) != 1 or ranked[0][1] != 1:
+        raise ProfileLostRecords(f"[profile {label}] probe_rank kernel "
+                                 f"launches {ranked}")
+    return busy, kernels, stage[RANK_STAGE] + ranked[0][0]
+
+
 def gist_rank_default_phase(rt, dev, smi, gist):
     """rank_precision "default" (one bf16 pass) against "highest" at the
     gist path's checked probe: the pass on the card against the fp32
@@ -3535,8 +3687,9 @@ def gist_rank_default_phase(rt, dev, smi, gist):
     cluster) choices that differ, and per precision (run highest,
     default, default, highest) recall@100 >= MIN_RECALL, the launches,
     device ms a batch and one profiled batch's busy ms and ranking stage
-    (the distance matrix: norms, GEMM, clamp)."""
-    from rabitq_tpu_torch.ops import rotate
+    (the distance terms: norms and GEMM; the probe_rank kernel forms the
+    key from them)."""
+    from rabitq_tpu_torch.ops import pairwise_l2sq, rotate
     from rabitq_tpu_torch.ops.distances import bf16_gemm_route
 
     tsearch = importlib.import_module("rabitq_tpu_torch.index.search")
@@ -3546,7 +3699,7 @@ def gist_rank_default_phase(rt, dev, smi, gist):
     route = bf16_gemm_route(dev)
     y = rotate(tsearch._prep_queries(index, gist["flat_q"]), index.orthogonal)
     c = index.centroids_rot
-    got = tsearch._rank_cdist(index, y, lo)
+    got = pairwise_l2sq(y, index.centroids_rot, lo.rank_precision)
     yb, cb = (t.to(torch.bfloat16).to(torch.float32) for t in (y, c))
     xx, cc = (y * y).sum(1, keepdim=True), (c * c).sum(1)
     model = torch.clamp(xx - 2.0 * (yb @ cb.T) + cc[None, :], min=0.0)
@@ -3559,7 +3712,7 @@ def gist_rank_default_phase(rt, dev, smi, gist):
     chosen = []
     for params in (p, lo):
         cids = tsearch._rank_clusters(
-            index, tsearch._rank_cdist(index, y, params), probe, params)
+            index, tsearch._rank_terms(index, y, params), probe, params)
         chosen.append(torch.zeros_like(got, dtype=torch.bool).scatter_(
             1, cids, True))
     differ = float((chosen[0] & ~chosen[1]).sum()) / (y.shape[0] * probe)
@@ -3570,7 +3723,7 @@ def gist_rank_default_phase(rt, dev, smi, gist):
         params = p._replace(rank_precision=prec)
         rank_ms, rank_kernels = retry_lost_records(
             lambda: device_ms_by_kernel(
-                lambda: tsearch._rank_cdist(index, y1, params)),
+                lambda: tsearch._rank_terms(index, y1, params)),
             f"gist rank {prec} stage")
         r = timed_search_many(rt, index, qd, params)
         r["recall"] = recall_of(r["ids"], gist["truth"])
@@ -3578,11 +3731,13 @@ def gist_rank_default_phase(rt, dev, smi, gist):
         if r["recall"] < MIN_RECALL:
             raise AssertionError(f"[gist rank {prec}] recall "
                                  f"{r['recall']:.4f} < {MIN_RECALL}")
-        busy, stage, kernels = retry_lost_records(lambda: profile_stages(
-            rt, index, qd[1], params, {RANK_STAGE: "_rank_cdist"},
-            f"gist rank {prec}"), f"gist rank {prec}")
+        busy, kernels, ranked_ms = retry_lost_records(
+            lambda: profile_ranking(rt, index, qd[1], params,
+                                    f"gist rank {prec}"),
+            f"gist rank {prec}")
         gemm = max(rank_kernels.items(), key=lambda kv: kv[1])
-        r.update(busy_ms=busy, rank_ms=rank_ms, gemm=gemm, kernels=kernels)
+        r.update(busy_ms=busy, rank_ms=rank_ms, gemm=gemm, kernels=kernels,
+                 ranked_ms=ranked_ms)
         runs[prec].append(r)
     check_no_host_sync(rt, index, qd[1], lo, "gist rank default")
 
@@ -3605,7 +3760,8 @@ def gist_rank_default_phase(rt, dev, smi, gist):
     log(f"[gist rank default] probe {probe}, highest | default (ran "
         f"highest, default, default, highest): recall@{p.topk} "
         f"{pair('recall')}; device ms/batch {pair('device_ms')}; busy ms "
-        f"(one profiled batch) {pair('busy_ms')}; ranking stage ms "
+        f"(one profiled batch) {pair('busy_ms')}, its ranking (terms and "
+        f"probe_rank) {pair('ranked_ms')}; ranking stage ms "
         f"{pair('rank_ms')} (the stage alone on one batch's rotated "
         f"queries; its longest kernel: "
         + " | ".join(f"{runs[k][0]['gemm'][0][:70]} "
@@ -3771,6 +3927,11 @@ def main() -> int:
     selects = {label: check_select(dev, smi, label, *shape) for label, shape in
                (("sift", (8192, 28, 256, 32)), ("gist", (1024, 64, 256, 150)),
                 ("blobs streamed", (1024, 384, 256, 150)))}
+    probe_ranks = {label: check_probe_rank(dev, smi, label, *shape)
+                   for label, shape in (
+                       ("sift", (16384, 4096, 128, 28, "highest")),
+                       ("gist", (8192, 4096, 1024, 64, "default")),
+                       ("blobs", (8192, 5327, 128, 384, "highest", 271)))}
     torch.cuda.empty_cache()
 
     # 4. The int4 probe.
@@ -3991,6 +4152,20 @@ def main() -> int:
          "other_shapes": {k: v for k, v in selects.items() if k != "sift"},
          "in_search": {label: in_search(run, ("select_ms",))
                        for label, run in search_runs}},
+        {"name": "probe_rank", "route": "cuda",
+         "source": "rabitq_tpu_torch/csrc/probe_rank.cu",
+         "replaces": "none: the ranking stage's pairwise_l2sq epilogue and "
+                     "stable torch.sort (lax.top_k over the centroid "
+                     "distances in rabitq_tpu/index/search.py)",
+         **launches("probe_rank"),
+         **{key: probe_ranks["sift"][key] for key in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+         "operands": "sift cell shape (B 16384, K 4096, D 128, probe 28), "
+                     "fused; ms = device time with the L2 cold; library_ms "
+                     "= pairwise_l2sq and the stable torch.sort it "
+                     "replaced, the GEMM included",
+         "other_shapes": {k: v for k, v in probe_ranks.items()
+                          if k != "sift"}},
         {"name": "int4_dot_direct", "route": "cuda",
          "source": "rabitq_tpu_torch/csrc/int4_dot.cu",
          "replaces": "tools/int4probe.py:64", **int4["int4_dot_direct"],

@@ -7,9 +7,12 @@ enabled):
   1. ``search.rank``: rotate the queries and rank every centroid by fp32
      distance (one bf16 pass at ``rank_precision="default"``), or by the
      annulus lower bound (``probe_rank="annulus"``); the ``probe`` best
-     clusters are scanned (stable sort, in a ``search.rank.sort`` span of
-     its own: ties go to the lower cluster id, as with ``lax.top_k``),
-     those ranked [probe_lo, probe) on an adaptive escalation;
+     clusters are scanned, those ranked [probe_lo, probe) on an adaptive
+     escalation. The selection is one launch, in a ``search.rank.sort``
+     span of its own (ops/probe_rank.py — on the GPU the CUDA kernel, which
+     forms the distance from the GEMM's terms in registers and keeps the
+     ``probe`` best, the ids of a stable sort: ties go to the lower cluster
+     id, as with ``lax.top_k``);
   2. ``search.quantize``: quantize the [B, probe] query residuals to 4
      bits (ops/quantize.py — the fused CUDA kernel on the GPU, which never
      materialises the [B, probe, D] f32 residual), nibble-packed when
@@ -48,12 +51,14 @@ from rabitq_tpu_torch.index.filter import RowFilter
 from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
+    cuda_probe_rank,
     cuda_quantize_residuals,
     cuda_rough_scan,
     cuda_select_candidates,
     pairwise_l2sq,
     rotate,
 )
+from rabitq_tpu_torch.ops.distances import L2Terms, l2sq_epilogue, pairwise_terms
 from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
 from rabitq_tpu_torch.profiling import span
 
@@ -111,14 +116,14 @@ def _prep_queries(index: RaBitQIndex, queries: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def _rank_cdist(
+def _rank_terms(
     index: RaBitQIndex, y: torch.Tensor, params: SearchParams
-) -> torch.Tensor:
-    """[B, K] f32 distances of the rotated queries to every centroid at
-    ``params.rank_precision`` (fp32, or one bf16 pass): the probe
-    ranking's input, shared by the scan and the early-stop certificate,
-    which recompute it identically."""
-    return pairwise_l2sq(y, index.centroids_rot, params.rank_precision)
+) -> L2Terms:
+    """The terms (xx, xc, cc) of the rotated queries' squared distances to
+    every centroid at ``params.rank_precision`` (fp32, or one bf16 pass):
+    the probe ranking's input, shared by the scan and the early-stop
+    certificate, which recompute them identically."""
+    return pairwise_terms(y, index.centroids_rot, params.rank_precision)
 
 
 def _cluster_radius_band(
@@ -161,20 +166,25 @@ def _annulus_bound(index: RaBitQIndex, cdist: torch.Tensor) -> torch.Tensor:
 
 
 def _rank_clusters(
-    index: RaBitQIndex, cdist: torch.Tensor, probe: int, params: SearchParams
+    index: RaBitQIndex, terms: L2Terms, probe: int, params: SearchParams
 ) -> torch.Tensor:
     """The ``probe`` best cluster ids per row by the ranking key of
     ``params.probe_rank`` (centroid distance or the annulus bound), best
     first; ties go to the lower id (split clusters' duplicated centroids
-    tie exactly, and the nearer segments have the lower ids)."""
+    tie exactly, and the nearer segments have the lower ids): the ids of a
+    stable sort of the key (ops/probe_rank.py). ``terms`` are the
+    distances' terms (_rank_terms): by centroid distance the kernel forms
+    the key from them itself; the annulus bound is built from the
+    distances."""
     if params.probe_rank == "annulus":
-        key = _annulus_bound(index, cdist)
+        xx = cc = None
+        key = _annulus_bound(index, l2sq_epilogue(terms))
     elif params.probe_rank == "centroid":
-        key = cdist
+        xx, key, cc = terms
     else:
         raise ValueError(f"unknown probe_rank {params.probe_rank!r}")
     with span("search.rank.sort", key.device):
-        return torch.sort(key, dim=-1, stable=True).indices[:, :probe]
+        return cuda_probe_rank(key, probe, xx, cc)
 
 
 def rough_scan(
@@ -197,7 +207,7 @@ def rough_scan(
         y = rotate(_prep_queries(index, queries), index.orthogonal)  # [B, D]
         # Both rankings return rank-sorted columns, so [lo:] are exactly
         # the clusters an escalation adds.
-        cids = _rank_clusters(index, _rank_cdist(index, y, params), probe,
+        cids = _rank_clusters(index, _rank_terms(index, y, params), probe,
                               params)[:, lo:]
     # The JAX gate of the nibble-packed query operand
     # (rabitq_tpu/index/search.py:403).
@@ -497,14 +507,14 @@ def _certificate_safe(
     True when no unprobed cluster can hold a vector closer than the
     current k-th result: every member x of cluster c has d(q, x)^2 >= the
     annulus bound of c (_annulus_bound). The probed set is ranked as the
-    scan ranked it (_rank_cdist, _rank_clusters on the same inputs give
+    scan ranked it (_rank_terms, _rank_clusters on the same inputs give
     the same values, at the same rank_precision), and the bound always
     comes from fp32 distances: a bf16 pass could overestimate d(q, c) and
     void the lower bound (rabitq_tpu/index/search.py:1010-1040)."""
-    cd_rank = _rank_cdist(index, y, params)
-    cids = _rank_clusters(index, cd_rank, probe, params)
+    terms = _rank_terms(index, y, params)
+    cids = _rank_clusters(index, terms, probe, params)
     cd = (pairwise_l2sq(y, index.centroids_rot)
-          if params.rank_precision != "highest" else cd_rank)
+          if params.rank_precision != "highest" else l2sq_epilogue(terms))
     bound = _annulus_bound(index, cd)  # [B, K]; empty clusters +inf
     probed = torch.zeros_like(bound, dtype=torch.bool).scatter_(1, cids, True)
     min_unprobed = torch.where(probed, torch.inf, bound).min(dim=-1).values

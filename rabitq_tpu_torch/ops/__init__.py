@@ -5,6 +5,10 @@ from rabitq_tpu_torch.ops.int4 import (
     pack_int4,
     unpack_int4,
 )
+from rabitq_tpu_torch.ops.probe_rank import (
+    cuda_probe_rank,
+    probe_rank_reference,
+)
 from rabitq_tpu_torch.ops.quantize import (
     cuda_quantize_residuals,
     pack_query_nibbles,
@@ -42,6 +46,8 @@ __all__ = [
     "gather_l2_reference",
     "cuda_select_candidates",
     "select_candidates_reference",
+    "cuda_probe_rank",
+    "probe_rank_reference",
     "pack_int4",
     "unpack_int4",
     "int4_dot_reference",

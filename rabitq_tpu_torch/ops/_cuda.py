@@ -3,8 +3,9 @@
 Each kernel source in ``rabitq_tpu_torch/csrc/`` has a plain C interface.
 At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/`` at the root of the checkout, named by a hash of
-the source and flags so an edited source rebuilds, and loaded with
-``ctypes``. Nothing here runs at import time; the CPU tests never build.
+the source, the headers beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds, and loaded with ``ctypes``. Nothing
+here runs at import time; the CPU tests never build.
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ def build(name: str) -> Build:
     half-written file.
     """
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")

@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
 
 def l2sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Elementwise-broadcast squared L2 over the last axis."""
@@ -34,18 +37,24 @@ def bf16_pass_matmul(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.matmul(xb.to(torch.float32), cb.to(torch.float32).T)
 
 
-def pairwise_l2sq(
-    x: torch.Tensor, c: torch.Tensor, precision: str = "highest"
-) -> torch.Tensor:
-    """All-pairs squared L2: [n, d] x [k, d] -> [n, k].
+class L2Terms(NamedTuple):
+    """The terms of all-pairs squared L2 by ||x - c||^2 = ||x||^2 -
+    2<x, c> + ||c||^2: the row norms ``xx`` [n, 1], the cross term ``xc``
+    [n, k] and the column norms ``cc`` [k], all f32."""
 
-    By the identity ||x - c||^2 = ||x||^2 - 2<x, c> + ||c||^2, clamped at
-    0 against cancellation. The norms are f32 sums; the cross term is one
-    fp32 matmul (TF32 off) at ``precision="highest"``, or one bf16 pass
-    (bf16_pass_matmul) at "default", as JAX's Precision.DEFAULT.
-    """
-    xx = torch.sum(x * x, dim=-1, keepdim=True)  # [n, 1]
-    cc = torch.sum(c * c, dim=-1)  # [k]
+    xx: torch.Tensor
+    xc: torch.Tensor
+    cc: torch.Tensor
+
+
+def pairwise_terms(
+    x: torch.Tensor, c: torch.Tensor, precision: str = "highest"
+) -> L2Terms:
+    """pairwise_l2sq's terms for [n, d] x [k, d]: the norms are f32 sums;
+    the cross term is one fp32 matmul (TF32 off) at
+    ``precision="highest"``, or one bf16 pass (bf16_pass_matmul) at
+    "default", as JAX's Precision.DEFAULT. The product is launched first,
+    so that a card waiting on the host starts its longest step soonest."""
     if precision == "highest":
         xc = torch.matmul(x, c.T)  # [n, k]
     elif precision == "default":
@@ -53,4 +62,22 @@ def pairwise_l2sq(
     else:
         raise ValueError(f"precision must be 'highest' or 'default', got "
                          f"{precision!r}")
+    xx = torch.sum(x * x, dim=-1, keepdim=True)  # [n, 1]
+    cc = torch.sum(c * c, dim=-1)  # [k]
+    return L2Terms(xx, xc, cc)
+
+
+def l2sq_epilogue(terms: L2Terms) -> torch.Tensor:
+    """[n, k] squared L2 from its terms: (xx - 2 xc) + cc, each step
+    rounded in f32 in that order, clamped at 0 against cancellation (a
+    NaN stays NaN). csrc/probe_rank.cu forms the same bits in registers."""
+    xx, xc, cc = terms
     return torch.clamp(xx - 2.0 * xc + cc[None, :], min=0.0)
+
+
+def pairwise_l2sq(
+    x: torch.Tensor, c: torch.Tensor, precision: str = "highest"
+) -> torch.Tensor:
+    """All-pairs squared L2: [n, d] x [k, d] -> [n, k], the epilogue of
+    pairwise_terms (see both)."""
+    return l2sq_epilogue(pairwise_terms(x, c, precision))

@@ -331,7 +331,7 @@ def stage(name: str, device):
 
 def run_captured(fn):
     """fn() with the number of calls it made to the search module's
-    rough_scan stage, and the launches of the four search kernels (and
+    rough_scan stage, and the launches of the five search kernels (and
     the scan's in qpack mode and with the penalty, the gather_l2 kernel's
     bf16-row instance apart from its f32 one, and the select kernel's on
     rows too long for shared memory), counted over fn() and
@@ -340,12 +340,14 @@ def run_captured(fn):
     leaves them running and reports its own share."""
     from rabitq_tpu_torch.ops import (
         cuda_gather_l2,
+        cuda_probe_rank,
         cuda_quantize_residuals,
         cuda_rough_scan,
         cuda_select_candidates,
     )
 
     counters = {
+        "probe_rank": (cuda_probe_rank, "launches"),
         "quantize": (cuda_quantize_residuals, "launches"),
         "rough_scan": (cuda_rough_scan, "launches"),
         "rough_scan qpack": (cuda_rough_scan, "launches_qpack"),

@@ -20,9 +20,10 @@ import torch
 import rabitq_tpu_torch as rt
 from benchmark import data, truth
 from benchmark.metrics import select_roofline
-from rabitq_tpu_torch.index.search import _rank_cdist, rough_scan
+from rabitq_tpu_torch.index.search import _rank_terms, rough_scan
 from rabitq_tpu_torch.kmeans import kmeans
 from rabitq_tpu_torch.ops import cuda_select_candidates, rotate
+from rabitq_tpu_torch.ops.distances import l2sq_epilogue
 from rabitq_tpu_torch.ops.scan_kernel import fold_slot_bits
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -83,7 +84,7 @@ def test_split_clusters_rank_by_distance_then_id(blobs):
     idx, q = blobs.index, blobs.queries
     scan = rough_scan(idx, q, PARAMS)
     y = rotate(q, idx.orthogonal)
-    cd = _rank_cdist(idx, y, PARAMS).numpy()
+    cd = l2sq_epilogue(_rank_terms(idx, y, PARAMS)).numpy()
     ids = np.broadcast_to(np.arange(idx.k), cd.shape)
     want = np.lexsort((ids, cd), axis=-1)[:, :PARAMS.probe]
     offsets = idx.offsets.numpy()

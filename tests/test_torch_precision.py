@@ -48,7 +48,11 @@ from rabitq_tpu_torch.index import serialize as tser
 from rabitq_tpu_torch.index.index import with_bf16_base
 from rabitq_tpu_torch.io import write_matrix
 from rabitq_tpu_torch.ops import gather_l2_reference
-from rabitq_tpu_torch.ops.distances import bf16_gemm_route, pairwise_l2sq
+from rabitq_tpu_torch.ops.distances import (
+    bf16_gemm_route,
+    l2sq_epilogue,
+    pairwise_l2sq,
+)
 from rabitq_tpu_torch.service import server as tserver
 from torch_parity import gist_like_corpus
 
@@ -485,9 +489,9 @@ def test_default_precision_ranks_the_scanned_clusters(built):
     q = torch.from_numpy(queries)
     y = rt.ops.rotate(tsearch._prep_queries(tidx, q), tidx.orthogonal)
     model = _default_pass_model(y.numpy(), tidx.centroids_rot.numpy())
-    np.testing.assert_allclose(
-        tsearch._rank_cdist(tidx, y, p).numpy(), model, rtol=RTOL,
-        atol=RTOL * float(model.max()))
+    got = l2sq_epilogue(tsearch._rank_terms(tidx, y, p))
+    np.testing.assert_allclose(got.numpy(), model, rtol=RTOL,
+                               atol=RTOL * float(model.max()))
     order = np.argsort(model, axis=1, kind="stable")[:, :8]
     starts = tsearch.rough_scan(tidx, q, p).starts.numpy()
     want = tidx.offsets.numpy()[order]
@@ -495,8 +499,9 @@ def test_default_precision_ranks_the_scanned_clusters(built):
         row = np.sort(model[b])
         assert np.isclose(row[j], row[j + 1], rtol=RTOL) or np.isclose(
             row[j], row[j - 1], rtol=RTOL), (b, j)
-    hi = tsearch._rank_cdist(tidx, y, p._replace(rank_precision="highest"))
-    assert not torch.equal(hi, tsearch._rank_cdist(tidx, y, p))
+    hi = l2sq_epilogue(tsearch._rank_terms(
+        tidx, y, p._replace(rank_precision="highest")))
+    assert not torch.equal(hi, got)
 
 
 def test_certificate_bound_stays_fp32_under_bf16_ranking(rng):
