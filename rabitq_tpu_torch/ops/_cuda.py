@@ -1,4 +1,4 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build, load and launch the package's hand-written CUDA kernels.
 
 Each kernel source in ``rabitq_tpu_torch/csrc/`` has a plain C interface.
 At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
@@ -6,18 +6,27 @@ library under ``build/`` at the root of the checkout, named by a hash of
 the source, the headers beside it (``csrc/*.cuh``) and the flags, so an
 edited source or header rebuilds, and loaded with ``ctypes``. Nothing
 here runs at import time; the CPU tests never build.
+
+Every wrapper launches the same way: ``on_card`` picks the kernel or the
+plain version from its operand's device, ``bind`` gives an entry point
+its ctypes signature, and ``launch`` calls it on the device's current
+stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from collections.abc import Callable
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -26,6 +35,26 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+@functools.cache
+def _sm90(device: torch.device) -> bool:
+    return torch.cuda.get_device_capability(device) == (9, 0)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t``'s device runs the kernels: False on the CPU, where the
+    caller takes its plain version, True on a CUDA device. Any other
+    device raises ValueError, and a card other than sm_90 RuntimeError:
+    the libraries are built for sm_90a alone (NVCC_FLAGS)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if not _sm90(t.device):
+        raise RuntimeError(f"the kernels are built for sm_90a only, "
+                           f"{t.device} is not sm_90")
+    return True
 
 
 def find_nvcc() -> str:
@@ -86,3 +115,23 @@ def build(name: str) -> Build:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: list) -> Callable[..., int]:
+    """``lib``'s entry point ``symbol``, taking ``argtypes`` and then the
+    stream, returning a CUDA error code. Pass pointers as c_void_p, as the
+    stream is, so that ctypes does not cut them to 32 bits."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, fn: Callable[..., int], device: torch.device,
+           *args) -> None:
+    """``fn(*args, stream)`` under ``device``'s guard on its current
+    stream; a CUDA error raises, naming the kernel ``name``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

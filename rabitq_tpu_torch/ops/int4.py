@@ -26,12 +26,10 @@ _MAX_GRID_Y = 65_535
 
 @functools.cache
 def _kernel():
-    """The built kernels' C entry point: three pointers, m, n, K/2, the
-    staged flag and the stream (pointers and the stream as c_void_p)."""
-    fn = _cuda.load("int4_dot").rabitq_int4_dot
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The built kernels' C entry point: three pointers, m, n, K/2 and the
+    staged flag."""
+    return _cuda.bind(_cuda.load("int4_dot"), "rabitq_int4_dot",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4)
 
 
 def pack_int4(x: torch.Tensor) -> torch.Tensor:
@@ -101,15 +99,11 @@ def cuda_int4_dot(
     ``.launches_staged`` count the launches of each kernel (not twin
     calls).
     """
-    if a.device.type == "cpu":
+    if not _cuda.on_card(a):
         return int4_dot_reference(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
     _check(a, b)
     m, kb = a.shape
     n = b.shape[0]
-    if torch.cuda.get_device_capability(a.device) != (9, 0):
-        raise RuntimeError("the int4 kernels are built for sm_90a only")
     check_kernel_shape(kb, n)
     for t in (a, b):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -117,15 +111,8 @@ def cuda_int4_dot(
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
-    launch = _kernel()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, kb, int(staged),
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"int4_dot kernel launch failed: CUDA error {err}")
+    _cuda.launch("int4_dot", _kernel(), a.device, a.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), m, n, kb, int(staged))
     if staged:
         cuda_int4_dot.launches_staged += 1
     else:

@@ -29,15 +29,11 @@ from rabitq_tpu_torch.ops.distances import L2Terms, l2sq_epilogue
 
 @functools.cache
 def _lib():
-    """The built kernel: its entry point with its ctypes signature (four
-    pointers, b, k, probe, the stream; pointers and the stream as c_void_p
-    so ctypes does not cut them to 32 bits) and the longest row it keeps
-    in shared memory."""
+    """The built kernel: its entry point (four pointers, b, k, probe) and
+    the longest row it keeps in shared memory."""
     lib = _cuda.load("probe_rank")
-    fn = lib.rabitq_probe_rank
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.bind(lib, "rabitq_probe_rank",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
     return fn, lib.rabitq_probe_rank_resident_max()
 
 
@@ -95,31 +91,21 @@ def cuda_probe_rank(
     ``.launches_fused`` those that formed the key from its terms and
     ``.launches_streamed`` those on rows too long for shared memory (not
     plain-version calls)."""
-    if x.device.type == "cpu":
+    if not _cuda.on_card(x):
         return probe_rank_reference(x, probe, xx, cc)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     _check(x, probe, xx, cc)
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError("the probe_rank kernel is built for sm_90a only")
     if not all(t.is_contiguous() for t in (x, xx, cc) if t is not None):
         raise ValueError("kernel operands must be contiguous")
     b, k = x.shape
     out = torch.empty((b, probe), dtype=torch.int64, device=x.device)
     if b == 0 or probe == 0:
         return out
-    launch, resident_max = _lib()
+    fn, resident_max = _lib()
     fused = xx is not None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            x.data_ptr(), xx.data_ptr() if fused else None,
-            cc.data_ptr() if fused else None, out.data_ptr(), b, k, probe,
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"probe_rank kernel launch failed: CUDA error "
-                           f"{err}")
+    _cuda.launch("probe_rank", fn, x.device, x.data_ptr(),
+                 xx.data_ptr() if fused else None,
+                 cc.data_ptr() if fused else None, out.data_ptr(), b, k,
+                 probe)
     cuda_probe_rank.launches += 1
     cuda_probe_rank.launches_fused += int(fused)
     cuda_probe_rank.launches_streamed += int(k > resident_max)

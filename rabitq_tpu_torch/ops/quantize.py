@@ -125,21 +125,17 @@ def quantize_residuals_reference(
 
 @functools.cache
 def _library():
-    """The built kernel library. Its launcher takes six pointers, n_tasks,
-    probe, dim, pack, the three scale constants as f32, and the stream
-    (pointers and the stream as c_void_p so ctypes does not cut them to 32
-    bits)."""
+    """The built kernel library: its launcher (six pointers, n_tasks,
+    probe, dim, pack and the three scale constants as f32) and its plan
+    query (n_tasks, dim, pack, dither and a pointer to five ints)."""
     lib = _cuda.load("quantize")
-    lib.rabitq_quantize_residuals.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p]
-    )
-    lib.rabitq_quantize_residuals.restype = ctypes.c_int
-    lib.rabitq_quantize_plan.argtypes = [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int)
-    ]
-    lib.rabitq_quantize_plan.restype = ctypes.c_int
-    return lib
+    launch = _cuda.bind(lib, "rabitq_quantize_residuals",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                        + [ctypes.c_float] * 3)
+    plan = lib.rabitq_quantize_plan
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    return launch, plan
 
 
 class QuantizePlan(NamedTuple):
@@ -160,8 +156,8 @@ def quantize_plan(n_tasks: int, dim: int, pack: bool,
     """The launch plan the built kernel takes for a call of ``n_tasks``
     tasks on the current CUDA device (builds the kernel at first use)."""
     out = (ctypes.c_int * 5)()
-    err = _library().rabitq_quantize_plan(n_tasks, dim, int(pack),
-                                          int(dither), out)
+    _, plan = _library()
+    err = plan(n_tasks, dim, int(pack), int(dither), out)
     if err:
         raise RuntimeError(f"quantize plan failed: CUDA error {err}")
     return QuantizePlan(*out)
@@ -192,17 +188,13 @@ def cuda_quantize_residuals(
     ``cuda_quantize_residuals.launches`` counts kernel launches (not twin
     calls).
     """
-    if y.device.type == "cpu":
+    if not _cuda.on_card(y):
         return quantize_residuals_reference(
             y, centroids_rot, cids, rand_bias, pack
         )
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     _check(y, centroids_rot, cids, rand_bias, pack)
     b, d = y.shape
     s = cids.numel()
-    if torch.cuda.get_device_capability(y.device) != (9, 0):
-        raise RuntimeError("the quantize kernel is built for sm_90a only")
     if d % 8:
         raise ValueError(f"dim must be a multiple of 8, got {d}")
     operands = [y, centroids_rot, cids]
@@ -217,17 +209,14 @@ def cuda_quantize_residuals(
     scal = torch.empty((s, 4), dtype=torch.float32, device=y.device)
     if s == 0:
         return qvals, scal
-    launch = _library().rabitq_quantize_residuals
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            y.data_ptr(), centroids_rot.data_ptr(), cids.data_ptr(),
-            None if rand_bias is None else rand_bias.data_ptr(),
-            qvals.data_ptr(), scal.data_ptr(), s, cids.shape[1], d,
-            int(pack), SCALAR, _TINY, float(_QMAX), stream,
-        )
-    if err:
-        raise RuntimeError(f"quantize kernel launch failed: CUDA error {err}")
+    launch, _ = _library()
+    _cuda.launch(
+        "quantize", launch, y.device,
+        y.data_ptr(), centroids_rot.data_ptr(), cids.data_ptr(),
+        None if rand_bias is None else rand_bias.data_ptr(),
+        qvals.data_ptr(), scal.data_ptr(), s, cids.shape[1], d,
+        int(pack), SCALAR, _TINY, float(_QMAX),
+    )
     cuda_quantize_residuals.launches += 1
     return qvals, scal
 

@@ -40,16 +40,10 @@ _INSTANCES = {
 
 @functools.cache
 def _kernel(entry: str):
-    """A built instance's C entry point: four pointers, n, b, r, dim, the
-    stream (pointers and the stream as c_void_p so ctypes does not cut
-    them to 32 bits)."""
-    fn = getattr(_cuda.load("gather_l2"), entry)
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+    """A built instance's C entry point: four pointers, n, b, r, dim."""
+    return _cuda.bind(_cuda.load("gather_l2"), entry,
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                      + [ctypes.c_int] * 3)
 
 
 def _check(base, pos, q):
@@ -122,15 +116,11 @@ def cuda_gather_l2(
     and ``cuda_gather_l2.launches_bf16`` the bf16 instance's (not twin
     calls).
     """
-    if base.device.type == "cpu":
+    if not _cuda.on_card(base):
         return gather_l2_reference(base, pos, q)
-    if base.device.type != "cuda":
-        raise ValueError(f"unsupported device {base.device}")
     _check(base, pos, q)
     n, d = base.shape
     b, r = pos.shape
-    if torch.cuda.get_device_capability(base.device) != (9, 0):
-        raise RuntimeError("the gather-l2 kernel is built for sm_90a only")
     entry, multiple = _INSTANCES[base.dtype]
     if d % multiple:
         raise ValueError(f"dim must be a multiple of {multiple} for a "
@@ -145,15 +135,8 @@ def cuda_gather_l2(
         lo, hi = (int(v) for v in torch.aminmax(pos))
         if lo < 0 or hi >= n:
             raise ValueError(f"positions [{lo}, {hi}] outside [0, {n})")
-    launch = _kernel(entry)
-    with torch.cuda.device(base.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            base.data_ptr(), pos.data_ptr(), q.data_ptr(), out.data_ptr(),
-            n, b, r, d, stream,
-        )
-    if err:
-        raise RuntimeError(f"gather_l2 kernel launch failed: CUDA error {err}")
+    _cuda.launch("gather_l2", _kernel(entry), base.device, base.data_ptr(),
+                 pos.data_ptr(), q.data_ptr(), out.data_ptr(), n, b, r, d)
     if base.dtype == torch.bfloat16:
         cuda_gather_l2.launches_bf16 += 1
     else:

@@ -63,20 +63,17 @@ QPC = 32
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point, with its ctypes signature: eleven
-    pointers, n_tasks, dim, span, fold, qpack, and the stream (pointers
-    and the stream as c_void_p so ctypes does not cut them to 32 bits). Raises
-    unless the kernel was built for groups of ``QPC`` tasks."""
+    """The built kernel's C entry point: eleven pointers, n_tasks, dim,
+    span, fold, qpack. Raises unless the kernel was built for groups of
+    ``QPC`` tasks."""
     lib = _cuda.load("rough_scan")
     if lib.rabitq_rough_scan_qpc() != QPC:
         raise RuntimeError(
             f"rough_scan kernel built for {lib.rabitq_rough_scan_qpc()} "
             f"tasks a group, grouping cuts at {QPC}"
         )
-    fn = lib.rabitq_rough_scan
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _cuda.bind(lib, "rabitq_rough_scan",
+                      [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5)
 
 
 def fold_slot_bits(span: int) -> int:
@@ -268,18 +265,14 @@ def cuda_rough_scan(
     ``cuda_rough_scan.launches_qpack`` those of them with ``qpack``,
     ``cuda_rough_scan.launches_penalty`` those with a penalty.
     """
-    if codes.device.type == "cpu":
+    if not _cuda.on_card(codes):
         return rough_scan_reference(
             codes, factors, starts, sizes, qvals, scal, span, fold, qpack,
             penalty,
         )
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
     _check(codes, factors, starts, sizes, qvals, scal, span, qpack, penalty)
     n, d = codes.shape
     s = starts.shape[0]
-    if torch.cuda.get_device_capability(codes.device) != (9, 0):
-        raise RuntimeError("the rough-scan kernel is built for sm_90a only")
     if d % 32:
         raise ValueError(f"dim must be a multiple of 32, got {d}")
     args = (codes, factors, starts, sizes, qvals, scal)
@@ -294,23 +287,13 @@ def cuda_rough_scan(
         return out
     order, group_first = group_tasks(starts, sizes, n, span)
     next_group = torch.zeros(1, dtype=torch.int32, device=codes.device)
-    launch = _kernel()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            *(t.data_ptr() for t in args),
-            None if penalty is None else penalty.data_ptr(),
-            *(t.data_ptr() for t in (order, group_first, next_group)),
-            out.data_ptr(),
-            s,
-            d,
-            span,
-            f,
-            int(qpack),
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"rough_scan kernel launch failed: CUDA error {err}")
+    _cuda.launch(
+        "rough_scan", _kernel(), codes.device,
+        *(t.data_ptr() for t in args),
+        None if penalty is None else penalty.data_ptr(),
+        *(t.data_ptr() for t in (order, group_first, next_group)),
+        out.data_ptr(), s, d, span, f, int(qpack),
+    )
     cuda_rough_scan.launches += 1
     cuda_rough_scan.launches_qpack += int(qpack)
     cuda_rough_scan.launches_penalty += int(penalty is not None)

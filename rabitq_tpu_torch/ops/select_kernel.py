@@ -34,17 +34,12 @@ from rabitq_tpu_torch.ops import _cuda
 
 @functools.cache
 def _lib():
-    """The built kernel: its entry point with its ctypes signature (four
-    pointers, b, n, width, r, slot_bits, n_rows, the stream; pointers and
-    the stream as c_void_p so ctypes does not cut them to 32 bits) and the
-    longest row it keeps in shared memory."""
+    """The built kernel: its entry point (four pointers, b, n, width, r,
+    slot_bits, n_rows) and the longest row it keeps in shared memory."""
     lib = _cuda.load("select")
-    fn = lib.rabitq_select_candidates
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64]
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    fn = _cuda.bind(lib, "rabitq_select_candidates",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                    + [ctypes.c_int64])
     return fn, lib.rabitq_select_resident_max()
 
 
@@ -122,14 +117,10 @@ def cuda_select_candidates(
     version. ``cuda_select_candidates.launches`` counts kernel launches
     and ``.launches_streamed`` those of them on rows too long for shared
     memory (not plain-version calls)."""
-    if rough.device.type == "cpu":
+    if not _cuda.on_card(rough):
         return select_candidates_reference(rough, starts, width, rerank,
                                            slot_bits, n)
-    if rough.device.type != "cuda":
-        raise ValueError(f"unsupported device {rough.device}")
     _check(rough, starts, width, rerank, slot_bits, n)
-    if torch.cuda.get_device_capability(rough.device) != (9, 0):
-        raise RuntimeError("the select kernel is built for sm_90a only")
     if not (rough.is_contiguous() and starts.is_contiguous()):
         raise ValueError("kernel operands must be contiguous")
     b, row = rough.shape
@@ -137,15 +128,10 @@ def cuda_select_candidates(
     lb = torch.empty((b, rerank), dtype=torch.float32, device=rough.device)
     if b == 0:
         return pos, lb
-    launch, resident_max = _lib()
-    with torch.cuda.device(rough.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            rough.data_ptr(), starts.data_ptr(), pos.data_ptr(),
-            lb.data_ptr(), b, row, width, rerank, slot_bits, n, stream,
-        )
-    if err:
-        raise RuntimeError(f"select kernel launch failed: CUDA error {err}")
+    fn, resident_max = _lib()
+    _cuda.launch("select", fn, rough.device, rough.data_ptr(),
+                 starts.data_ptr(), pos.data_ptr(), lb.data_ptr(), b, row,
+                 width, rerank, slot_bits, n)
     cuda_select_candidates.launches += 1
     cuda_select_candidates.launches_streamed += int(row > resident_max)
     return pos, lb

@@ -336,8 +336,7 @@ def run_captured(fn):
     bf16-row instance apart from its f32 one, and the select kernel's on
     rows too long for shared memory), counted over fn() and
     read just after it (after a synchronize on the card). The kernels'
-    counts are set to 0 just before fn(); a run_captured inside fn()
-    leaves them running and reports its own share."""
+    counts are set to 0 just before fn()."""
     from rabitq_tpu_torch.ops import (
         cuda_gather_l2,
         cuda_probe_rank,
@@ -368,11 +367,8 @@ def run_captured(fn):
             calls += 1
         return stage_fn(*args, **kwargs)
 
-    counted.counting = True
-    if not getattr(stage_fn, "counting", False):
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-    before = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
     tsearch.rough_scan = counted
     try:
         out = fn()
@@ -381,8 +377,7 @@ def run_captured(fn):
     finally:
         tsearch.rough_scan = stage_fn
     return out, {"rough_scan calls": calls, **{
-        k: getattr(obj, attr) - before[k]
-        for k, (obj, attr) in counters.items()}}
+        k: getattr(obj, attr) for k, (obj, attr) in counters.items()}}
 
 
 def timed_batches(run_all, warm_up, qd, topk):

@@ -66,10 +66,9 @@ def build(name: str, src: Path, out_dir: Path):
     if proc.returncode:
         raise RuntimeError(f"nvcc {name}:\n{proc.stdout}{proc.stderr}")
     regs = registers(proc.stdout + proc.stderr)
-    fn = ctypes.CDLL(str(lib)).rabitq_quantize_residuals
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _cuda.bind(ctypes.CDLL(str(lib)), "rabitq_quantize_residuals",
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] * 3)
     return name, fn, regs
 
 
@@ -81,12 +80,11 @@ def launcher(fn):
                                device=y.device),
                    torch.empty((s, 4), dtype=torch.float32, device=y.device))
         q, scal = out
-        err = fn(y.data_ptr(), c.data_ptr(), cids.data_ptr(),
-                 None if bias is None else bias.data_ptr(), q.data_ptr(),
-                 scal.data_ptr(), s, cids.shape[1], d, int(pack), SCALAR,
-                 _TINY, float(_QMAX), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
+        _cuda.launch("quantize", fn, y.device, y.data_ptr(), c.data_ptr(),
+                     cids.data_ptr(),
+                     None if bias is None else bias.data_ptr(), q.data_ptr(),
+                     scal.data_ptr(), s, cids.shape[1], d, int(pack), SCALAR,
+                     _TINY, float(_QMAX))
         return q, scal
     return call
 

@@ -131,11 +131,14 @@ def test_config_table_equals_bench_py():
             d.fault_every) == (2048, 1_000_000, 10, 1.5, 0.0, 50)
 
 
+@pytest.mark.parametrize("dim", [96, 960])
 @pytest.mark.parametrize("gen", ["make_dataset", "make_blobs_dataset"])
 @pytest.mark.parametrize("chunk_rows", [64, 1000, 1 << 16])
-def test_generators_draw_bench_py_numbers(gen, chunk_rows):
-    want = getattr(jbench, gen)(700, 96, 16, 9, seed=3)
-    got = getattr(bench, gen)(700, 96, 16, 9, seed=3, chunk_rows=chunk_rows)
+def test_generators_draw_bench_py_numbers(gen, chunk_rows, dim):
+    """Also at the GIST width, with the noise drawn in row chunks (the
+    last one ragged)."""
+    want = getattr(jbench, gen)(700, dim, 16, 9, seed=3)
+    got = getattr(bench, gen)(700, dim, 16, 9, seed=3, chunk_rows=chunk_rows)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
@@ -342,27 +345,26 @@ def test_build_index_keep_base_false_drops_only_the_base():
         assert torch.equal(getattr(lean, f), getattr(full, f)), f
 
 
-def test_run_captured_counts_through_a_nested_capture(monkeypatch):
-    """The twin's sweep times batches inside chip_smoke's capture of the
-    whole run: the outer counts see every launch, the inner its own."""
+def test_run_captured_counts_from_zero_and_restores_the_stage(monkeypatch):
+    """The kernels' counters are set to 0 just before fn(), the stage's
+    calls are counted through the search module, and the stage is put
+    back after fn()."""
     from rabitq_tpu_torch.ops import cuda_gather_l2
 
     monkeypatch.setattr(cuda_gather_l2, "launches", 5)
     tsearch = __import__("importlib").import_module(
         "rabitq_tpu_torch.index.search")
+    monkeypatch.setattr(tsearch, "rough_scan", lambda *a, **k: None)
+    stage = tsearch.rough_scan
 
-    def launch(n):
-        for _ in range(n):
-            tsearch.rough_scan
+    def run():
+        for _ in range(3):
+            tsearch.rough_scan()
             cuda_gather_l2.launches += 1
+        return "out"
 
-    def outer():
-        launch(2)
-        _, inner = bench.run_captured(lambda: launch(3))
-        launch(1)
-        return inner
-
-    inner, counts = bench.run_captured(outer)
-    assert inner["gather_l2"] == 3 and counts["gather_l2"] == 6
-    assert cuda_gather_l2.launches == 6  # set to 0 before the outer run
-    assert not getattr(tsearch.rough_scan, "counting", False)
+    out, counts = bench.run_captured(run)
+    assert out == "out"
+    assert counts["rough_scan calls"] == 3 and counts["gather_l2"] == 3
+    assert counts["quantize"] == counts["select"] == 0
+    assert tsearch.rough_scan is stage

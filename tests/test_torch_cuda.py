@@ -21,7 +21,8 @@ sums the same f32 squares as its twin in another order: rtol 1e-5, atol
 1e-5 * max|out|; both give NaN exactly at positions outside [0, N). So
 does its bf16-row instance, whose rows widen to f32 exactly. The search's
 two-level rerank, its bf16 cluster ranking and the packed ids agree with
-the CPU path.
+the CPU path. On every search path each kernel launches once a scan call,
+and a batch makes no host sync.
 """
 
 import concurrent.futures
@@ -137,6 +138,17 @@ def test_grouped_kernel_max_sharing(dev, d, s, fold):
 
 def _same_bits(got, want):
     return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _without_host_sync(fn):
+    """fn() under sync debug mode "error": an op that synchronizes with
+    the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.parametrize("fold", [1, 2])
@@ -627,9 +639,9 @@ def test_qpack_launch_counter_and_rejections(dev):
 
 def test_search_at_1024d_runs_quantize_and_qpack_once(dev, tmp_path):
     """A 960-d index (padded to 1024): one batch launches the quantize
-    kernel once and the scan once in qpack mode; the results equal the CPU
-    path's but at near-ties, and a dump reloaded on the card searches
-    alike."""
+    kernel once and the scan once in qpack mode, and makes no host sync;
+    the results equal the CPU path's but at near-ties, and a dump reloaded
+    on the card searches alike."""
     from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
 
     rng = np.random.default_rng(1)
@@ -647,6 +659,8 @@ def test_search_at_1024d_runs_quantize_and_qpack_once(dev, tmp_path):
     torch.cuda.synchronize()
     assert (cuda_quantize_residuals.launches, cuda_rough_scan.launches,
             cuda_rough_scan.launches_qpack) == tuple(x + 1 for x in before)
+    q = queries.to(dev)
+    _without_host_sync(lambda: rt.search(idx, q, params))
     cpu_idx = _cpu_copy(idx)
     d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
     same = i_gpu.cpu() == i_cpu
@@ -746,8 +760,9 @@ def test_gather_l2_bf16_launch_counter_and_rejections(dev):
 def test_rerank_bf16_and_bf16_ranking_on_card_equal_cpu(dev):
     """The two-level rerank at refine -1 and 0, and the bf16 ranking, on
     the card: the bf16 instance launches once a batch (and the f32 one
-    once more when it refines), the results equal the CPU path's but at
-    near-ties; the packed ids unpack to the search's."""
+    once more when it refines), a batch makes no host sync, the results
+    equal the CPU path's but at near-ties; the packed ids unpack to the
+    search's."""
     from rabitq_tpu_torch.index.index import with_bf16_base
     from rabitq_tpu_torch.index.search import search_many_packed
     from rabitq_tpu_torch.ops.distances import bf16_gemm_route
@@ -770,6 +785,8 @@ def test_rerank_bf16_and_bf16_ranking_on_card_equal_cpu(dev):
         torch.cuda.synchronize()
         assert (cuda_gather_l2.launches - before[0],
                 cuda_gather_l2.launches_bf16 - before[1]) == (f32_launches, 1)
+        q = queries.to(dev)
+        _without_host_sync(lambda: rt.search(idx, q, params))
         d_cpu, i_cpu = rt.search(cpu_idx, queries, params)
         same = i_gpu.cpu() == i_cpu
         assert same.float().mean() >= 0.98
@@ -791,8 +808,8 @@ def test_rerank_bf16_and_bf16_ranking_on_card_equal_cpu(dev):
 def test_filtered_mutated_adaptive_search_on_card(dev):
     """A filtered search of a mutated index (tombstones and a memtable)
     and an adaptive one, on the card: each scan call launches the
-    quantize, scan and gather_l2 kernels once, and the results equal the
-    CPU path's but at near-ties."""
+    quantize, scan and gather_l2 kernels once, the filtered batch makes no
+    host sync, and the results equal the CPU path's but at near-ties."""
     rng = np.random.default_rng(2)
     centers = rng.standard_normal((16, 128)).astype(np.float32)
     base = (centers[rng.integers(0, 16, 6000)]
@@ -811,6 +828,8 @@ def test_filtered_mutated_adaptive_search_on_card(dev):
     d_gpu, i_gpu = rt.search(idx, queries.to(dev), params, rf)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [b + 1 for b in before]
+    q = queries.to(dev)
+    _without_host_sync(lambda: rt.search(idx, q, params, rf))
     d_cpu, i_cpu = rt.search(cpu_idx, queries, params, cpu_rf)
     ids = i_gpu.cpu()
     assert not torch.isin(ids, torch.arange(1, 6050, 2)).any()
@@ -838,7 +857,9 @@ def test_search_with_store_on_card_equals_cpu(dev, tmp_path):
     on the card launches the quantize and scan kernels once and gather_l2
     never, and equals the same call on the CPU but at near-ties (the
     exact distances are host numpy over the same rows: equal ids give
-    equal distances)."""
+    equal distances). Its estimate makes no host sync (the batch's one
+    copy to the host, for the store's rows, is by design)."""
+    from rabitq_tpu_torch.index.search import estimate_candidates
     from rabitq_tpu_torch.index.serialize import dump_to_dir, load_from_dir
     from rabitq_tpu_torch.store import DeviceStore, MmapStore, search_with_store
 
@@ -881,6 +902,41 @@ def test_search_with_store_on_card_equals_cpu(dev, tmp_path):
         np.testing.assert_array_equal(d_g[same], d_c[same])
         if gf is not None:
             assert np.isin(i_g[i_g >= 0], allow).all()
+    q = torch.from_numpy(queries).to(dev)
+    _without_host_sync(lambda: estimate_candidates(lean, q, params))
+
+
+@pytest.mark.parametrize("path", ["plain", "packed"])
+def test_search_path_launches_once_a_scan_call_without_host_sync(dev, path):
+    """search_many at D 128, returning ids and distances or the packed
+    ids: every search kernel launches once a scan call (probe_rank at
+    least once), and one batch makes no host sync. The other paths check
+    the same in their own tests."""
+    from rabitq_tpu_torch.index.search import search_many_packed
+    from rabitq_tpu_torch.ops.idpack import nbits_for
+    from rabitq_tpu_torch.tools.bench import run_captured
+
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((16, 128)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 6000)]
+            + 0.3 * rng.standard_normal((6000, 128))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    qd = torch.from_numpy(base[:64] + 0.01).to(dev).reshape(2, 32, 128)
+    params = rt.SearchParams(probe=6, topk=10, rerank=64)
+    if path == "packed":
+        def run(q):
+            return search_many_packed(idx, q, params, nbits_for(idx.n))
+    else:
+        def run(q):
+            return rt.search_many(idx, q, params)
+    _, counts = run_captured(lambda: run(qd))
+    want = {k: 2 for k in ("rough_scan calls", "quantize", "rough_scan",
+                           "select", "gather_l2")}
+    assert {k: counts[k] for k in want} == want, counts
+    assert counts["probe_rank"] >= 2, counts
+    _without_host_sync(lambda: run(qd[:1]))
+    torch.cuda.synchronize()
 
 
 def _cpu_copy(index):

@@ -333,23 +333,3 @@ def test_chip_smoke_fails_fast_without_a_gpu():
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert time.perf_counter() - t0 < 60
-
-
-def test_chip_smoke_dataset_is_bench_dataset():
-    """Also at the GIST width with the noise drawn in row chunks (the last
-    one ragged): bench.make_dataset's numbers exactly."""
-    sys.path.insert(0, str(REPO))
-    import chip_smoke
-
-    for a, b in zip(
-        chip_smoke.make_dataset(500, 128, 16, 7, seed=0),
-        make_dataset(500, 128, 16, 7, seed=0),
-    ):
-        np.testing.assert_array_equal(a, b)
-    want = make_dataset(700, 960, 16, 9, seed=3)
-    for chunk_rows in (64, 1000):
-        got = chip_smoke.make_dataset(700, 960, 16, 9, seed=3,
-                                      chunk_rows=chunk_rows)
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype
-            np.testing.assert_array_equal(a, b)
