@@ -288,6 +288,47 @@ def cluster_scan_operands(dev, n_clusters, b, probe, span, dim, seed=0,
     return (codes, factors, starts.int(), t_sizes.int(), qvals, scal)
 
 
+# Many-group scan cases (group_case_operands): for each, the sizes of the
+# clusters laid end to end, how many tasks probe each, and how many times
+# the pattern repeats (so that each of the card's resident blocks runs many
+# groups).
+GROUP_CASES = {
+    # windows of 1-8 rows, probed by 1, 32, 33 or 5 tasks: groups of one
+    # task and full groups, one stage each
+    "tiny": ([1 + i % 8 for i in range(48)], [1, 32, 33, 5] * 12, 50),
+    # empty clusters (sharing a start with their successor) between full
+    # ones (size None: the span)
+    "empty": ([0, None] * 20, [1 + (7 * i) % 40 for i in range(40)], 50),
+    # a window of exactly the span and one of span - 1, the last ending at
+    # row N-1
+    "span_edges": ([None, -1, 5, None, -1], [20, 40, 3, 17, 33], 50),
+    # three groups: fewer than the card's resident blocks
+    "few_groups": ([200, 7, None], [32, 32, 5], 1),
+}
+
+
+def group_case_operands(dev, case, span, dim, seed=0, bits=4, reps=None):
+    """Scan operands of one GROUP_CASES case: its clusters laid end to end
+    (a size of None is ``span``, -1 is ``span - 1``), repeated ``reps``
+    times (default: the case's own count), and its tasks in a random
+    order."""
+    sizes, probes, default_reps = GROUP_CASES[case]
+    reps = default_reps if reps is None else reps
+    sizes = [span if z is None else span - 1 if z == -1 else z
+             for z in sizes] * reps
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    cids = np.repeat(np.arange(len(sizes)), probes * reps)
+    perm = torch.randperm(cids.size, generator=gen, device=dev).cpu().numpy()
+    cids = cids[perm]
+    starts = torch.as_tensor(offsets[cids], dtype=torch.int32, device=dev)
+    t_sizes = torch.as_tensor(np.asarray(sizes)[cids], dtype=torch.int32,
+                              device=dev)
+    codes, factors, qvals, scal = _scan_values(
+        gen, dev, int(offsets[-1]), cids.size, dim, bits)
+    return (codes, factors, starts, t_sizes, qvals, scal)
+
+
 def scan_bound(codes, starts, sizes, span, out_width, q_bytes=None,
                penalty=False):
     """The least time of one scan on these operands: each probed row's code
@@ -1118,14 +1159,19 @@ def path_phase(dev, name):
     mode "error", so a host sync fails it. Returns the launch counts."""
     import rabitq_tpu_torch as rt
     from benchmark import harness, spec
+    from rabitq_tpu_torch.ops import rough_scan_counts
     from rabitq_tpu_torch.tools.bench import run_captured
 
     t0 = time.perf_counter()
     state = harness.setup(spec.load_cell(name), 0, dev, t0)
     index, params, qd = state.index, state.params, state.batches[:2]
     t1 = time.perf_counter()
+    run0, pre0 = rough_scan_counts(dev)
     _, counts = run_captured(lambda: rt.search_many(index, qd, params))
     search_s = time.perf_counter() - t1
+    run1, pre1 = rough_scan_counts(dev)
+    counts["rough_scan groups"] = run1 - run0
+    counts["rough_scan groups prefetched"] = pre1 - pre0
     calls = counts["rough_scan calls"]
     want = {key: calls for key in ("quantize", "rough_scan", "gather_l2",
                                    "select")}
@@ -1147,8 +1193,9 @@ def path_phase(dev, name):
         f"{index.capacity} D {index.dim}; the kernel checks' shape: k {k} "
         f"span {span} D {dim}); search_many of {qd.shape[0]} batches of "
         f"{qd.shape[1]} at probe {params.probe}: {search_s:.2f}s, launches "
-        f"{counts}: each kernel once a scan call; one batch under sync "
-        f"debug mode 'error': no host sync")
+        f"{counts}: each kernel once a scan call; rough_scan groups "
+        f"prefetched {100 * (pre1 - pre0) / max(1, run1 - run0):.2f}%; one "
+        f"batch under sync debug mode 'error': no host sync")
     del state, index, qd
     gc.collect()
     torch.cuda.empty_cache()
@@ -1260,6 +1307,8 @@ def main() -> int:
          **launches("rough_scan"),
          "launches_qpack": launches("rough_scan qpack"),
          "launches_penalty": launches("rough_scan penalty"),
+         "groups": launches("rough_scan groups"),
+         "groups_prefetched": launches("rough_scan groups prefetched"),
          "max_abs_err": max(r["max_abs_err"] for r in
                             (*scans.values(), *penalties.values(),
                              *cells["rough_scan"].values())),

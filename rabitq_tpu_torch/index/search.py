@@ -48,6 +48,7 @@ import torch
 
 from rabitq_tpu_torch.consts import LANES
 from rabitq_tpu_torch.index.filter import RowFilter
+from rabitq_tpu_torch.index import replay
 from rabitq_tpu_torch.index.index import RaBitQIndex, SearchParams
 from rabitq_tpu_torch.ops import (
     cuda_gather_l2,
@@ -454,7 +455,15 @@ def search(
     """Search a batch: (distances [B, topk], ids [B, topk]). Slots with
     fewer than topk reachable candidates have distance +inf and id -1.
     ``row_filter`` (make_row_filter) restricts results to rows whose id
-    passes its predicate."""
+    passes its predicate. On a card an unfiltered batch is replayed from
+    a CUDA graph of its launches from its shape's second call on
+    (index/replay.py)."""
+    if row_filter is None and replay.eligible(queries):
+        return replay.run(_search, index, queries, params)
+    return _search(index, queries, params, row_filter)
+
+
+def _search(index, queries, params, row_filter=None):
     dists, ids, _ = search_with_stats(index, queries, params, row_filter)
     return dists, ids
 

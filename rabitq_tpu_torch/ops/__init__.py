@@ -23,6 +23,7 @@ from rabitq_tpu_torch.ops.rerank_kernel import (
 from rabitq_tpu_torch.ops.rotation import gen_random_orthogonal, rotate
 from rabitq_tpu_torch.ops.scan_kernel import (
     cuda_rough_scan,
+    rough_scan_counts,
     rough_scan_reference,
 )
 from rabitq_tpu_torch.ops.select_kernel import (
@@ -41,6 +42,7 @@ __all__ = [
     "pairwise_l2sq",
     "l2sq",
     "cuda_rough_scan",
+    "rough_scan_counts",
     "rough_scan_reference",
     "cuda_gather_l2",
     "gather_l2_reference",

@@ -37,6 +37,17 @@ CUDA tensors and the twin ``rough_scan_reference`` on CPU tensors. Before
 the launch, ``group_tasks`` groups the tasks that share a cluster (the
 port of the JAX kernel's ``_group_tasks``), so that one window read and
 one int8 tensor-core product serve up to ``QPC`` tasks.
+
+The kernel is persistent and warp-specialised: in each resident block a
+producer warp takes the next group, fetches its descriptor, stages its
+query tile and streams its window through a ring of shared-memory stages
+(cp.async, full and empty mbarriers), while eight consumer warps
+multiply, fold and store the group before it. The ring runs across
+groups, so group g+1's loads are in flight while group g computes and
+stores. Two blocks an SM, with 4 stages at D 128 and 3 at D 1024 packed
+(the source's "Design"). ``rough_scan_counts`` reads the kernel's own
+count of the groups it ran and of those whose loads it issued while the
+block's previous group was still being worked on.
 """
 
 from __future__ import annotations
@@ -63,7 +74,7 @@ QPC = 32
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point: eleven pointers, n_tasks, dim,
+    """The built kernel's C entry point: twelve pointers, n_tasks, dim,
     span, fold, qpack. Raises unless the kernel was built for groups of
     ``QPC`` tasks."""
     lib = _cuda.load("rough_scan")
@@ -73,7 +84,31 @@ def _kernel():
             f"tasks a group, grouping cuts at {QPC}"
         )
     return _cuda.bind(lib, "rabitq_rough_scan",
-                      [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5)
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5)
+
+
+@functools.cache
+def _counts(device: torch.device) -> torch.Tensor:
+    """The kernel's counters on ``device``: [groups run, groups prefetched]
+    int64, added to by every launch there."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+def rough_scan_counts(device: torch.device | str) -> tuple[int, int]:
+    """(groups run, groups prefetched) by every scan kernel launch on
+    ``device`` since the process started: the groups of ``group_tasks``
+    that the kernel's blocks ran, and those of them whose first window
+    stage (an empty window's descriptor) the block's producer warp issued
+    while its consumer warps still held the block's previous group. Reads
+    the device (a host sync), so it is never called on the search path;
+    (0, 0) on the CPU, where no kernel runs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0, 0
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    run, prefetched = _counts(device).tolist()
+    return run, prefetched
 
 
 def fold_slot_bits(span: int) -> int:
@@ -291,8 +326,9 @@ def cuda_rough_scan(
         "rough_scan", _kernel(), codes.device,
         *(t.data_ptr() for t in args),
         None if penalty is None else penalty.data_ptr(),
-        *(t.data_ptr() for t in (order, group_first, next_group)),
-        out.data_ptr(), s, d, span, f, int(qpack),
+        *(t.data_ptr() for t in (order, group_first, next_group,
+                                 _counts(codes.device), out)),
+        s, d, span, f, int(qpack),
     )
     cuda_rough_scan.launches += 1
     cuda_rough_scan.launches_qpack += int(qpack)

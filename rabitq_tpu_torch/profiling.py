@@ -153,6 +153,11 @@ class SpanRecorder:
     def disable(self) -> None:
         self._forced = max(0, self._forced - 1)
 
+    @property
+    def on(self) -> bool:
+        """Whether spans are recorded."""
+        return bool(self._forced)
+
     def span(self, name: str, device: torch.device | None = None):
         """A range named ``name`` (see the module docstring); timed on the
         device too when ``device`` is a CUDA device."""

@@ -336,7 +336,10 @@ def run_captured(fn):
     bf16-row instance apart from its f32 one, and the select kernel's on
     rows too long for shared memory), counted over fn() and
     read just after it (after a synchronize on the card). The kernels'
-    counts are set to 0 just before fn()."""
+    counts are set to 0 just before fn(). The search's graph replay
+    (index/replay.py) is paused inside, so that every batch calls the
+    stage."""
+    from rabitq_tpu_torch.index import replay
     from rabitq_tpu_torch.ops import (
         cuda_gather_l2,
         cuda_probe_rank,
@@ -371,7 +374,8 @@ def run_captured(fn):
         setattr(obj, attr, 0)
     tsearch.rough_scan = counted
     try:
-        out = fn()
+        with replay.paused():
+            out = fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     finally:

@@ -13,7 +13,11 @@ cluster-structured ones whose tasks share windows, in each of its modes
 (the full output and the lane fold at depth 1 and 2), also on the
 nibble-packed query operand (qpack), where it must equal the unpacked
 kernel on the same values, and with the row-filter penalty operand in
-every mode; and so must the int4 kernels (integer
+every mode, also where each resident block runs many groups whose loads
+overlap the previous group's work (windows of 1-8 rows, empty clusters
+between full ones, windows of the span and of span - 1, fewer groups than
+resident blocks, launches back to back), where ``rough_scan_counts`` adds
+the groups of ``group_tasks``; and so must the int4 kernels (integer
 arithmetic). The fused quantize kernel equals its twin bit for bit in the
 quantized values (packed or not), lo, delta and code_sum, and its ycd =
 sum r^2, summed in another order, within rtol 1e-6. The gather-l2 kernel
@@ -35,10 +39,12 @@ import torch
 
 import rabitq_tpu_torch as rt
 from chip_smoke import (
+    GROUP_CASES,
     assert_gather_close,
     cluster_gather_positions,
     cluster_scan_operands,
     gather_operands,
+    group_case_operands,
     quantize_operands,
     scan_operands,
     scan_penalty,
@@ -53,10 +59,15 @@ from rabitq_tpu_torch.ops import (
     gather_l2_reference,
     int4_dot_reference,
     pack_int4,
+    rough_scan_counts,
     rough_scan_reference,
 )
 from rabitq_tpu_torch.ops.quantize import quantize_plan
-from rabitq_tpu_torch.ops.scan_kernel import effective_fold, fold_slot_bits
+from rabitq_tpu_torch.ops.scan_kernel import (
+    effective_fold,
+    fold_slot_bits,
+    group_tasks,
+)
 from rabitq_tpu_torch.tools import int4probe
 
 pytestmark = pytest.mark.cuda
@@ -294,6 +305,74 @@ def test_kernel_rejects_misaligned_operands(dev):
     ops[5] = torch.zeros((9 * 4 + 1,), device=dev)[1:].view(9, 4)
     with pytest.raises(ValueError, match="aligned"):
         cuda_rough_scan(*ops, 128)
+
+
+# The scan's operand modes in the many-group tests: D, qpack, and the share
+# of rows the penalty filters (0: no penalty operand).
+RING_MODES = {"plain": (128, False, 0.0), "qpack": (256, True, 0.0),
+              "penalty": (128, False, 0.3),
+              "qpack_penalty": (1024, True, 0.3)}
+
+
+def _ring_operands(dev, case, d, qpack, density, seed):
+    ops = list(group_case_operands(dev, case, 384, d, seed=seed))
+    if qpack:
+        ops[4] = pack_query_nibbles(ops[4])
+    pen = (scan_penalty(dev, ops[0].shape[0], density, seed=seed)
+           if density else None)
+    return ops, pen
+
+
+@pytest.mark.parametrize("mode", sorted(RING_MODES))
+@pytest.mark.parametrize("fold", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_ring_across_groups_equals_twin(dev, case, fold, mode):
+    """Each resident block runs many groups, whose loads the producer warp
+    issues while the consumers work on the previous group: windows of 1-8
+    rows in groups of 1 and 32 tasks, empty clusters between full ones, a
+    window of exactly the span and one of span - 1, and fewer groups than
+    resident blocks. Bit-equal to the twin in every fold depth, with and
+    without qpack and the penalty."""
+    d, qpack, density = RING_MODES[mode]
+    ops, pen = _ring_operands(dev, case, d, qpack, density,
+                              seed=fold * 7 + d)
+    got = cuda_rough_scan(*ops, 384, fold, qpack, pen)
+    want = rough_scan_reference(*ops, 384, fold, qpack, pen)
+    torch.cuda.synchronize()
+    assert got.shape == (ops[2].shape[0], fold * 128 if fold else 384)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("fold", [0, 1, 2])
+def test_ring_back_to_back_launches(dev, fold):
+    """Three launches on one stream with no sync between them, at D 128,
+    1024 (another launch plan: one block an SM, more stages) and 128
+    again: each block's barriers and ring start clean."""
+    calls = [(*_ring_operands(dev, "tiny", 128, False, 0.0, seed=11), False),
+             (*_ring_operands(dev, "span_edges", 1024, True, 0.3, seed=12),
+              True)]
+    calls.append(calls[0])
+    outs = [cuda_rough_scan(*ops, 384, fold, qpack, pen)
+            for ops, pen, qpack in calls]
+    for (ops, pen, qpack), got in zip(calls, outs):
+        want = rough_scan_reference(*ops, 384, fold, qpack, pen)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_rough_scan_counts_groups(dev, case):
+    """rough_scan_counts: a launch adds the groups of group_tasks to the
+    groups run, and at most as many to the groups prefetched."""
+    ops = group_case_operands(dev, case, 384, 128, seed=5)
+    s = ops[2].shape[0]
+    _, first = group_tasks(ops[2], ops[3], ops[0].shape[0], 384)
+    n_groups = int((first < s).sum())
+    run0, pre0 = rough_scan_counts(dev)
+    cuda_rough_scan(*ops, 384, 2)
+    run1, pre1 = rough_scan_counts(dev)
+    assert run1 - run0 == n_groups
+    assert 0 <= pre1 - pre0 <= n_groups
 
 
 @pytest.mark.parametrize("select_reduce", [True, False])
@@ -937,6 +1016,93 @@ def test_search_path_launches_once_a_scan_call_without_host_sync(dev, path):
     assert counts["probe_rank"] >= 2, counts
     _without_host_sync(lambda: run(qd[:1]))
     torch.cuda.synchronize()
+
+
+def _replay_index(dev, case):
+    """A small index and its parameters for each case of the replay tests:
+    D 128 with spilled (deduped) rows, D 960 padded to 1024 (qpack), the
+    two-level bf16 rerank, and a live memtable with deletions."""
+    dim = 960 if case == "qpack" else 128
+    rng = np.random.default_rng(11)
+    centers = rng.standard_normal((16, dim)).astype(np.float32)
+    base = (centers[rng.integers(0, 16, 5000)]
+            + 0.3 * rng.standard_normal((5000, dim))).astype(np.float32)
+    idx = rt.build_index(base, centers, bits=4, spill=0.2, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    params = rt.SearchParams(probe=6, topk=10, rerank=48)
+    if case == "bf16":
+        from rabitq_tpu_torch.index.index import with_bf16_base
+
+        idx = with_bf16_base(idx)
+        params = params._replace(rerank_bf16=True)
+    if case == "memtable":
+        idx = rt.delete(rt.insert(idx, base[:40] + 0.02), np.arange(0, 5000, 11))
+    qs = torch.from_numpy(base[:96] + 0.01).to(dev).reshape(3, 32, dim)
+    return idx, params, qs
+
+
+@pytest.mark.parametrize("case", ["plain", "qpack", "bf16", "memtable"])
+def test_search_replay_equals_eager(dev, case):
+    """A batch shape's first search runs eagerly, its second records a
+    CUDA graph, and from then on the search replays it: every result
+    equals the eager search of the same batch bit for bit, a result is
+    not overwritten by later replays, each kernel's launch counter
+    advances once a search, and a replay makes no host sync."""
+    from rabitq_tpu_torch.index import replay
+    from rabitq_tpu_torch.ops import cuda_gather_l2, cuda_select_candidates
+
+    idx, params, qs = _replay_index(dev, case)
+    with replay.paused():
+        want = [rt.search(idx, q, params) for q in qs]
+    replay.clear()
+    counters = (cuda_quantize_residuals, cuda_rough_scan,
+                cuda_select_candidates, cuda_gather_l2)
+    before = [c.launches for c in counters]
+    order = [0, 1, 2, 1, 0]
+    got = [rt.search(idx, qs[b], params) for b in order[:4]]
+    got.append(_without_host_sync(lambda: rt.search(idx, qs[0], params)))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [5] * 4
+    (entry,) = replay._graphs.values()
+    assert entry.graph is not None
+    for b, (d, i) in zip(order, got):
+        assert torch.equal(d, want[b][0]) and torch.equal(i, want[b][1]), b
+
+
+def test_search_replay_keys(dev):
+    """Another index, other parameters or another batch shape get graphs
+    of their own, and each replays its own results; past MAX_GRAPHS
+    graphs a new key runs eagerly; a row-filtered batch and a batch with
+    the spans on run eagerly and record nothing."""
+    from rabitq_tpu_torch import profiling
+    from rabitq_tpu_torch.index import replay
+
+    idx, params, qs = _replay_index(dev, "plain")
+    other = rt.delete(idx, np.arange(0, 5000, 3))
+    wide = params._replace(probe=9)
+    runs = [(idx, qs[0], params), (other, qs[0], params), (idx, qs[0], wide),
+            (idx, qs[1, :16], params), (idx, qs[1, :8], params)]
+    with replay.paused():
+        want = [rt.search(*r) for r in runs]
+    replay.clear()
+    for _ in range(3):
+        for r, (d, i) in zip(runs, want):
+            got = rt.search(*r)
+            assert torch.equal(got[0], d) and torch.equal(got[1], i)
+    assert len(replay._graphs) == replay.MAX_GRAPHS == 4
+    assert all(e.graph is not None for e in replay._graphs.values())
+    assert replay._key(idx, qs[1, :8], params) in replay._seen
+    replay.clear()
+    flt = rt.make_row_filter(idx, allow_ids=np.arange(0, 5000, 2))
+    for _ in range(3):
+        rt.search(idx, qs[0], params, row_filter=flt)
+    profiling.SPANS.enable()
+    try:
+        for _ in range(3):
+            rt.search(idx, qs[0], params)
+    finally:
+        profiling.SPANS.disable()
+    assert not replay._graphs and not replay._seen
 
 
 def _cpu_copy(index):

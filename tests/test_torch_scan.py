@@ -33,9 +33,11 @@ from conftest import make_clustered_dataset
 from rabitq_tpu.index.index import padded_offsets
 from rabitq_tpu.ops import pairwise_l2sq, quantize_query_residuals, rotate
 from rabitq_tpu.ops.scan_kernel import pallas_rough_scan
+from chip_smoke import GROUP_CASES, group_case_operands
 from rabitq_tpu_torch.ops import (
     cuda_rough_scan,
     pack_query_nibbles,
+    rough_scan_counts,
     rough_scan_reference,
 )
 from rabitq_tpu_torch.ops.scan_kernel import (
@@ -286,6 +288,40 @@ def test_grouped_layout_equals_twin_bitwise(rng, kind, d, span):
     want = rough_scan_reference(*tensors, span)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_case_operands_hold_their_groups(case):
+    """The card's many-group cases (chip_smoke.group_case_operands, one
+    repetition of each pattern) hold the groups they name, and on them the
+    grouped evaluation equals the twin bit for bit."""
+    span = 384
+    ops = group_case_operands(torch.device("cpu"), case, span, 64, reps=1)
+    order, first, n_groups = _check_groups(ops[2].numpy(), ops[3].tolist(),
+                                           span, ops[0].shape[0])
+    per_group = np.diff(first[:n_groups + 1])
+    windows = set(ops[3].tolist())
+    if case == "tiny":
+        assert windows <= set(range(1, 9)) and {1, QPC} <= set(per_group)
+    elif case == "empty":
+        assert windows == {0, span}
+    elif case == "span_edges":
+        assert {span, span - 1} <= windows
+        assert int((ops[2] + ops[3]).max()) == ops[0].shape[0]
+    else:
+        assert n_groups == 3
+    got = _grouped_scan(*ops, span)
+    want = rough_scan_reference(*ops, span)
+    assert torch.equal(got, want)
+
+
+def test_rough_scan_counts_zero_on_cpu(rng):
+    """No kernel runs on the CPU: the counters read (0, 0) there, and a
+    wrapper call that takes the twin leaves them so."""
+    ops = _random_operands(rng, 300, 64, 128, [128, 40], [0, 172])
+    assert rough_scan_counts("cpu") == (0, 0)
+    cuda_rough_scan(*map(torch.from_numpy, ops), 128, 2)
+    assert rough_scan_counts(torch.device("cpu")) == (0, 0)
 
 
 def _scan_inputs(jidx, queries, probe):

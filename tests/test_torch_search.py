@@ -168,6 +168,46 @@ def test_kmeans_build_search_many_end_to_end(corpus):
     assert torch.all(d1[:, 1:] >= d1[:, :-1])
 
 
+@pytest.mark.parametrize("spans", [False, True])
+def test_search_on_the_cpu_records_no_graph(corpus, spans):
+    """The graph replay of index/replay.py is for cards alone: a CPU
+    search, spans on or off, is never eligible, records no graph, and
+    gives what search_with_stats gives."""
+    from rabitq_tpu_torch import profiling
+    from rabitq_tpu_torch.index import replay
+
+    base, queries, _ = corpus
+    idx = rt.build_index(base[:600], base[:8], device="cpu")
+    params = rt.SearchParams(probe=4, topk=TOPK, rerank=32)
+    q = torch.from_numpy(queries[:8])
+    replay.clear()
+    if spans:
+        profiling.SPANS.enable()
+    try:
+        assert not replay.eligible(q)
+        got = [rt.search(idx, q, params) for _ in range(3)]
+    finally:
+        if spans:
+            profiling.SPANS.disable()
+    assert not replay._graphs and not replay._seen
+    d, i, _ = rt.search_with_stats(idx, q, params)
+    for gd, gi in got:
+        assert torch.equal(gd, d) and torch.equal(gi, i)
+
+
+def test_replay_paused_nests():
+    """paused() nests, and eligibility comes back after the outer block;
+    on the CPU a batch is never eligible either way."""
+    from rabitq_tpu_torch.index import replay
+
+    q = torch.zeros(2, 8)
+    with replay.paused():
+        with replay.paused():
+            assert replay._paused == 2
+        assert replay._paused == 1
+    assert replay._paused == 0 and not replay.eligible(q)
+
+
 def test_unreachable_slots_are_inf_and_minus_one(corpus):
     base, queries, _ = corpus
     rng = np.random.default_rng(3)
