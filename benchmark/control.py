@@ -6,11 +6,17 @@ the card, from which the limits in ``limits/<cell>.json`` are set.
   precision below the configuration's float32 with TF32 off: brute force
   whose product runs in TF32 (each operand rounded to 10 mantissa bits,
   the products summed in float32, as the tensor cores compute it), its
-  distances returned as the answer.
+  distances returned as the answer; in a filtered cell over the allowed
+  rows alone.
 - ``half``: half of each batch left out (its queries answered with no
   ids).
 - ``altered``: one answer altered where it is produced (the first id of
   each batch moved to the next row).
+- ``unfiltered``, in a filtered cell only: the program's search called
+  without the cell's row filter.
+
+``half`` and ``altered`` break the program's search as the cell calls it,
+with its row filter where it has one.
 
 A step that returns its state unchanged, and the exchange between chips,
 are faults this system cannot have: a search keeps no state from batch to
@@ -19,7 +25,8 @@ batch, and a cell runs on one card.
     python3 -m benchmark.control --workload sift1m.b16384 --seeds 1,2,3 \\
         --control-seeds 1,2,3 --fault-seeds 1,2,3 --seconds 2
 
-prints one JSON line a (seed, arm) and appends them to
+(``--faults``, by default every fault the cell can have) prints one JSON
+line a (seed, arm) and appends them to
 ``<out>/control-<cell>.jsonl`` (``--out``, by default ``build/control``
 in the checkout).
 """
@@ -47,18 +54,21 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def control_search(state):
     """The control's search: the exact top-k of each batch over the
-    benchmark's base, ranked and reported by TF32 distances."""
+    benchmark's base (its allowed rows in a filtered cell), ranked and
+    reported by TF32 distances."""
     base = tf32_round(harness.base_rows(state))
+    allowed = state.allowed
 
     def search(index, queries, params):
-        return truth.brute_force_topk(base, tf32_round(queries), params.topk)
+        return truth.brute_force_topk(base, tf32_round(queries), params.topk,
+                                      allowed)
 
     return search
 
 
 def half_batch(state):
     """The program's search with the second half of each batch left out."""
-    from rabitq_tpu_torch.index.search import search as program
+    program = harness.program_search(state.row_filter)
 
     def search(index, queries, params):
         h = queries.shape[0] // 2
@@ -73,7 +83,7 @@ def half_batch(state):
 
 def altered(state):
     """The program's search with one id of each batch altered."""
-    from rabitq_tpu_torch.index.search import search as program
+    program = harness.program_search(state.row_filter)
 
     n = state.config["rows"]
 
@@ -86,7 +96,18 @@ def altered(state):
     return search
 
 
+def unfiltered(state):
+    """The program's search without the cell's row filter."""
+    return harness.program_search()
+
+
 FAULTS = {"half": half_batch, "altered": altered}
+FILTER_FAULTS = {"unfiltered": unfiltered}
+
+
+def faults(cell: spec.Cell) -> dict:
+    """{name: fault} of the faults ``cell`` can have."""
+    return {**FAULTS, **(FILTER_FAULTS if "filter" in cell.traffic else {})}
 
 
 def _ints(s: str) -> list:
@@ -99,7 +120,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=_ints, default=[])
     ap.add_argument("--control-seeds", type=_ints, default=[])
     ap.add_argument("--fault-seeds", type=_ints, default=[])
-    ap.add_argument("--faults", default="half,altered")
+    ap.add_argument("--faults")
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--out", default=str(spec.ROOT / "build" / "control"))
     args = ap.parse_args(argv)
@@ -107,6 +128,8 @@ def main(argv=None) -> int:
         print("control: no CUDA device", file=sys.stderr)
         return 2
     cell = spec.load_cell(args.workload)
+    cell_faults = faults(cell)
+    names = args.faults.split(",") if args.faults else list(cell_faults)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -123,8 +146,7 @@ def main(argv=None) -> int:
             if seed in args.control_seeds:
                 arms.append(("control", control_search(state)))
             if seed in args.fault_seeds:
-                arms += [(k, FAULTS[k](state))
-                         for k in args.faults.split(",")]
+                arms += [(k, cell_faults[k](state)) for k in names]
             for arm, fn in arms:
                 line = harness.measure(cell, state, args.seconds, False, t,
                                        fn, keep=True)

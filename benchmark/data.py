@@ -15,6 +15,11 @@ and of the query pool, so every seed asks the same work of the index, on
 batches made up otherwise; a seed that drew its own rows could change the
 index's shape (a split cluster) and with it the work. The first ``rows``
 rows are the base, the rest the pool.
+
+A filtered cell's allow-list (``allowed_ids``) is one fixed set of corpus
+rows too, drawn from ``structure_seed`` on a stream of its own after
+nothing else, so the rows above are the same with or without it; a run
+sees it in its own ids, through its base order.
 """
 
 from __future__ import annotations
@@ -24,12 +29,17 @@ import math
 import torch
 
 
+FILTER = 4  # the stream of a corpus's allow-list
+
+
 def generator(seed: int, stream: int, device) -> torch.Generator:
     """A generator on ``device`` for one random stream of ``seed``: a
-    run's order (0) and build (2), or a corpus's rows (3) and k-means
-    (1)."""
+    run's order (0) and build (2), or a corpus's rows (3), k-means (1) and
+    allow-list (``FILTER``). Streams past 3 set bit 62 of the key, which
+    no (seed, stream) pair below it reaches."""
     g = torch.Generator(device=device)
-    g.manual_seed(((seed << 2) | stream) & ((1 << 63) - 1))
+    key = (seed << 2) | (stream & 3) | (stream >> 2) << 62
+    g.manual_seed(key & ((1 << 63) - 1))
     return g
 
 
@@ -75,3 +85,19 @@ def make(config: dict, pool: int, seed: int, device):
     base = x[:rows][torch.randperm(rows, generator=order, device=device)]
     queries = x[rows:][torch.randperm(pool, generator=order, device=device)]
     return base, queries, train
+
+
+def allowed_ids(config: dict, fraction: float, seed: int, device):
+    """Run ids [m] int64, ascending, of the corpus rows the allow-list
+    keeps: ``round(fraction * rows)`` of them, uniform and unrelated to
+    the vectors, drawn from the corpus's ``structure_seed``; a run's id i
+    holds the corpus row that ``make``'s base order (the first draw of
+    ``seed``'s order stream) puts there."""
+    rows = config["rows"]
+    g = generator(config["data"]["structure_seed"], FILTER, device)
+    keep = torch.zeros(rows, dtype=torch.bool, device=device)
+    keep[torch.randperm(rows, generator=g, device=device)[
+        : round(fraction * rows)]] = True
+    order = torch.randperm(rows, generator=generator(seed, 0, device),
+                           device=device)
+    return torch.nonzero(keep[order]).squeeze(1)

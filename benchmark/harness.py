@@ -7,6 +7,14 @@ its training rows, the base to the host and ``build_index``, and warm-up
 batches of the window's own shape (the first run in a checkout builds
 the CUDA kernels there).
 
+A cell whose traffic holds ``"filter": {"allowed": <fraction>}`` draws
+its allow-list with the corpus (data.py), builds the program's row filter
+from it once in set-up (``filter_s``: ``make_row_filter`` through a
+``RowFilterContext``, as a deployment builds its predicate once), and
+passes it on every call of the program's search: the warm-up, the window,
+the traced batches and the readers' own calls; the reference then ranks
+the allowed rows alone.
+
 The window is a closed loop over the query pool, batch after batch, with
 at most ``in_flight`` batches in flight: the host enqueues batch n+1 while
 batch n runs and waits for batch n's ids before it starts batch n+2. Each
@@ -63,6 +71,8 @@ class State:
     index: object
     params: object
     stages: dict            # set-up stage -> seconds
+    allowed: torch.Tensor | None = None  # run ids a filtered cell allows
+    row_filter: object = None            # the program's filter of them
 
 
 def setup(cell: spec.Cell, seed: int, device, t_start: float) -> State:
@@ -88,10 +98,14 @@ def setup(cell: spec.Cell, seed: int, device, t_start: float) -> State:
             f"{peak:.3f} GB")
 
     stages["start"] = time.perf_counter() - t_start
+    allowed = row_filter = None
     with stage("data"):
         base, queries, train = data.make(cfg, tr["pool"], seed, device)
         batches = queries.reshape(-1, tr["batch"], cfg["dim"])
         del queries
+        if "filter" in tr:
+            allowed = data.allowed_ids(cfg, tr["filter"]["allowed"], seed,
+                                       device)
     km = cfg["kmeans"]
     with stage("kmeans_s"):
         centroids = kmeans(
@@ -107,10 +121,31 @@ def setup(cell: spec.Cell, seed: int, device, t_start: float) -> State:
                             generator=data.generator(seed, 2, device),
                             **cfg["build"])
     del base_host, centroids
+    if allowed is not None:
+        from rabitq_tpu_torch.index.filter import (RowFilterContext,
+                                                   make_row_filter)
+
+        with stage("filter_s"):
+            row_filter = make_row_filter(
+                index, allow_ids=allowed.cpu().numpy(),
+                ctx=RowFilterContext(index))
     params = SearchParams(probe=tr["probe"], topk=tr["topk"],
                           rerank=tr["rerank"],
                           rank_precision=cfg["rank_precision"])
-    return State(device, cfg, seed, batches, index, params, stages)
+    return State(device, cfg, seed, batches, index, params, stages, allowed,
+                 row_filter)
+
+
+def program_search(row_filter=None):
+    """The program's search as a cell calls it: (index, queries, params)
+    -> (dists, ids), with ``row_filter`` on every call where there is
+    one."""
+    from rabitq_tpu_torch.index.search import search
+
+    if row_filter is None:
+        return search
+    return lambda index, queries, params: search(index, queries, params,
+                                                 row_filter=row_filter)
 
 
 def base_rows(state: State) -> torch.Tensor:
@@ -222,10 +257,9 @@ def measure(cell: spec.Cell, state: State, seconds: float, trace: bool,
     comparison, on a set-up ``state``; ``setup_s`` runs from ``t_start``
     to the window's start. The program's state is freed before the
     reference runs unless ``keep``."""
-    from rabitq_tpu_torch.index.search import search
-
     tr, device = cell.traffic, state.device
-    loop = Loop(state, tr["in_flight"], search_fn or search)
+    loop = Loop(state, tr["in_flight"],
+                search_fn or program_search(state.row_filter))
     nb = state.batches.shape[0]
     t = time.perf_counter()
     loop.run(batches=WARMUP_ROUNDS * tr["in_flight"])
@@ -275,7 +309,7 @@ def measure(cell: spec.Cell, state: State, seconds: float, trace: bool,
             setup=dict(state.stages),
             work=types.SimpleNamespace(
                 index=state.index, params=state.params,
-                batches=state.batches,
+                row_filter=state.row_filter, batches=state.batches,
                 traced=[(first + j) % nb for j in range(n_traced)]),
             log=log,
         )
@@ -296,16 +330,18 @@ def measure(cell: spec.Cell, state: State, seconds: float, trace: bool,
 
     loop = None
     if not keep:  # the program's state goes before the reference runs
-        state.index = None
+        state.index = state.row_filter = None
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
     t = time.perf_counter()
     base = base_rows(state)
     _, true_ids = truth.brute_force_topk(
-        base, state.batches.reshape(-1, state.batches.shape[2]), tr["topk"])
+        base, state.batches.reshape(-1, state.batches.shape[2]), tr["topk"],
+        state.allowed)
     checks, correct, failed = check.compare(
-        answers, base, state.batches, true_ids, tr["topk"], cell.limits)
+        answers, base, state.batches, true_ids, tr["topk"], cell.limits,
+        state.allowed)
     del base
     sync(device)
     log(f"[reference] {time.perf_counter() - t:.3f} s")

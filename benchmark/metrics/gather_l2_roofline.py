@@ -8,7 +8,8 @@ padded one): each distinct row its rerank positions name, read once as D
 f32 values, each position and each output once (8 + 4 bytes), and the
 queries once; against 3 fp32 operations an element of each position
 (subtract, multiply, add). The positions are the search's own
-candidates, from the program's ``estimate_candidates`` on the same batch.
+candidates, from the program's ``estimate_candidates`` on the same batch,
+under the cell's row filter where it has one.
 """
 
 import collections
@@ -21,11 +22,11 @@ KERNEL = "gather_l2_kernel"
 COUNTER = "cuda_gather_l2.launches"
 
 
-def gather_work(index, queries, params):
+def gather_work(index, queries, params, row_filter=None):
     """(bytes, fp32 operations) of one batch's rerank gather."""
     from rabitq_tpu_torch import estimate_candidates
 
-    pos = estimate_candidates(index, queries, params).pos
+    pos = estimate_candidates(index, queries, params, row_filter).pos
     n_pos = pos.numel()
     rows = int(torch.unique(pos).numel())
     dim = queries.shape[1]
@@ -45,7 +46,7 @@ def read(ctx):
     by = collections.Counter()
     for b, times in collections.Counter(w.traced).items():
         s, kind = roofline.bound_s(
-            *gather_work(w.index, w.batches[b], w.params),
+            *gather_work(w.index, w.batches[b], w.params, w.row_filter),
             roofline.FP32_FLOPS_PER_S)
         bound += s * times
         by[kind] += times

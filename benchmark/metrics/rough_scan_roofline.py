@@ -15,8 +15,12 @@ whatever layout or mode implements the scan:
   size, 4 bits a dimension, and its four f32 scalars;
 - the R candidates a query hands on, an id and an f32 estimate of 4
   bytes each, written once;
+- under a row filter, each distinct probed row's f32 penalty;
 
-against 2 * D int8 operations a scanned row of a task.
+against 2 * D int8 operations a scanned row of a task. The probed
+clusters do not depend on the filter, so they are taken from a scan
+without it; the share of the traced launches that carried a penalty
+(``cuda_rough_scan.launches_penalty``) is logged.
 """
 
 import collections
@@ -27,6 +31,7 @@ from benchmark import roofline
 
 KERNEL = "rough_scan_kernel"
 COUNTER = "cuda_rough_scan.launches"
+PENALTY = "cuda_rough_scan.launches_penalty"
 QUERY_BITS = 4
 SCALARS = 4  # f32 factors a row, and f32 scalars a task
 OUT_BYTES = 8  # id and estimate of one candidate
@@ -48,14 +53,16 @@ def probed_rows(offsets, starts, n_scanned):
     return int(sizes[torch.unique(c)].sum()) - excess, slots
 
 
-def scan_work(index, queries, params):
+def scan_work(index, queries, params, row_filter=None):
     """(bytes, int8 operations) of one batch's rough scan."""
     from rabitq_tpu_torch.index.search import rough_scan
 
     scan = rough_scan(index, queries, params)
     rows, slots = probed_rows(index.offsets, scan.starts, scan.n_scanned)
     dim = queries.shape[1]
-    nbytes = (rows * (index.code_bits * dim / 8 + 4 * SCALARS)
+    per_row = (index.code_bits * dim / 8
+               + 4 * (SCALARS + (row_filter is not None)))
+    nbytes = (rows * per_row
               + scan.starts.numel() * (QUERY_BITS * dim / 8 + 4 * SCALARS)
               + queries.shape[0] * params.rerank * OUT_BYTES)
     return nbytes, 2 * dim * slots
@@ -72,11 +79,16 @@ def read(ctx):
     bound = 0.0
     by = collections.Counter()
     for b, times in collections.Counter(w.traced).items():
-        s, kind = roofline.bound_s(*scan_work(w.index, w.batches[b], w.params),
-                                   roofline.INT8_OPS_PER_S)
+        s, kind = roofline.bound_s(
+            *scan_work(w.index, w.batches[b], w.params, w.row_filter),
+            roofline.INT8_OPS_PER_S)
         bound += s * times
         by[kind] += times
+    penalty = ctx.launches.get(PENALTY)
     ctx.log(f"[rough_scan_roofline] bound {1e3 * bound / launches:.4f} ms a "
             f"batch ({dict(by)}), kernel {1e3 * kernel_s / launches:.4f} ms "
-            f"({len(recs)} records, {launches} launches)")
+            f"({len(recs)} records, {launches} launches, "
+            + ("penalty launches not counted" if penalty is None else
+               f"{penalty} with a penalty: {100 * penalty / launches:.1f}%")
+            + ")")
     return 100.0 * bound / kernel_s

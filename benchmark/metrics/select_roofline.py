@@ -12,7 +12,7 @@ written once (8 + 4 bytes), at the memory's peak; the selection does no
 arithmetic worth a bound. A batch's row length is the search's own:
 ``probe`` tasks of the lane-folded width (fold depth x 128) where the
 search folds the scan, else of the index's capacity, by the gate of
-``index.search._estimate_candidates``.
+``index.search._estimate_candidates``, which a row filter shuts.
 
 Beside it the share of the traced launches that ran the streamed
 instance (``cuda_select_candidates.launches_streamed``) is logged.
@@ -25,9 +25,9 @@ COUNTER = "cuda_select_candidates.launches"
 STREAMED = "cuda_select_candidates.launches_streamed"
 
 
-def select_row(index, params):
+def select_row(index, params, filtered=False):
     """(tasks, width, R) of a query's selection row, as the search sizes
-    it for an unfiltered batch."""
+    it for a batch with a row filter or (``filtered`` false) without."""
     from rabitq_tpu_torch.consts import LANES
     from rabitq_tpu_torch.ops.scan_kernel import effective_fold
 
@@ -36,7 +36,8 @@ def select_row(index, params):
     cap = index.capacity
     rerank = max(params.topk, min(params.rerank, probe * cap))
     depth = effective_fold(cap, max(1, min(2, int(params.fold_depth))))
-    folded = depth and params.select_reduce and rerank <= probe * depth * LANES
+    folded = (depth and params.select_reduce and not filtered
+              and rerank <= probe * depth * LANES)
     return probe, depth * LANES if folded else cap, rerank
 
 
@@ -48,7 +49,8 @@ def read(ctx):
         return None
     kernel_s = sum(recs) / len(recs) * launches / 1e6
     w = ctx.work
-    tasks, width, rerank = select_row(w.index, w.params)
+    tasks, width, rerank = select_row(
+        w.index, w.params, getattr(w, "row_filter", None) is not None)
     nbytes = w.batches.shape[1] * (tasks * width * 4 + tasks * 4
                                    + rerank * (8 + 4))
     bound = nbytes / roofline.HBM_BYTES_PER_S * len(w.traced)

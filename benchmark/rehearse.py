@@ -17,8 +17,8 @@ import time
 
 from benchmark import spec
 
-# Scale only: every width, topk, rerank, build and precision setting stays
-# the cell's own.
+# Scale only: every width, topk, rerank, build, precision and filter
+# setting stays the cell's own.
 TINY_CONFIG = dict(rows=3000)
 TINY_KMEANS = dict(k=32, iters=4, train_rows=3000)
 TINY_TRAFFIC = dict(batch=32, pool=96, probe=16, trace_batches=3)

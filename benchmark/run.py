@@ -5,7 +5,9 @@
 Prints progress to stderr, then the compared numbers beside their limits
 as stderr's last lines, and the result as one JSON line, stdout's last.
 Exits non-zero, printing no result, where there is no CUDA device or
-fewer than the cell asks for, or where the program is not beside it.
+fewer than the cell asks for, where the program is not beside it, or
+where the process holds jax, jaxlib, flax or the JAX package once the
+window has closed.
 """
 
 import time
@@ -24,6 +26,18 @@ from benchmark import spec  # noqa: E402
 os.environ.setdefault("TORCH_EXTENSIONS_DIR",
                       str(spec.ROOT / "build" / "torch_extensions"))
 os.environ.setdefault("TRITON_CACHE_DIR", str(spec.ROOT / "build" / "triton"))
+
+# Top-level module names that must not be loaded in a run: JAX and the
+# JAX package, which the port stands beside and must not lean on.
+JAX_MODULES = frozenset({"jax", "jaxlib", "flax", "rabitq_tpu"})
+
+
+def jax_loaded(modules=None) -> list:
+    """The names of ``JAX_MODULES`` that ``modules`` (by default
+    ``sys.modules``) holds, compared by whole top-level names."""
+    names = {m.partition(".")[0] for m in (sys.modules if modules is None
+                                           else modules)}
+    return sorted(JAX_MODULES & names)
 
 
 def parse_args(argv=None):
@@ -56,6 +70,11 @@ def main(argv=None) -> int:
 
     line = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                             "cuda", T_START)
+    found = jax_loaded()
+    if found:
+        print(f"benchmark: the run loaded {', '.join(found)}",
+              file=sys.stderr)
+        return 4
     harness.log(f"[card] {harness.nvidia_smi()}")
     for name, c in line["checks"].items():
         harness.log(f"[check] {name} {c['value']!r} limit {c['limit']!r}")

@@ -4,13 +4,14 @@ The traced batches run as the window does, with the program's spans off,
 so what the other readers take from their trace is the program's plain
 path. Once a run, the first of these readers runs the same batches again
 through the harness's loop, under torch.profiler as the traced batches
-ran, with the spans on (``rabitq_tpu_torch.profiling.enable()``); the
-readers read that pass. On the card each span holds a pair of CUDA
-events, and a stage's time is the time between them: the stage's work and
-the card's idle time inside the stage. So each stage's share of the pass's
-busy time is logged beside it, with the idle share and the host's time a
-``search`` call of the pass and of the traced batches. A program without the spans, or a run without device
-operations (the CPU), gives nothing to read.
+ran, with the spans on (``rabitq_tpu_torch.profiling.enable()``) and the
+cell's row filter where it has one; the readers read that pass. On the
+card each span holds a pair of CUDA events, and a stage's time is the
+time between them: the stage's work and the card's idle time inside the
+stage. So each stage's share of the pass's busy time is logged beside
+it, with the idle share and the host's time a ``search`` call of the
+pass and of the traced batches. A program without the spans, or a run
+without device operations (the CPU), gives nothing to read.
 """
 
 from __future__ import annotations
@@ -67,13 +68,12 @@ def _run_pass(ctx):
     t = ctx.trace
     if profiling is None or t is None or not t.device:
         return None
-    from rabitq_tpu_torch.index.search import search
-
     w = ctx.work
     device = w.batches.device
     state = types.SimpleNamespace(batches=w.batches, params=w.params,
                                   index=w.index, device=device)
-    loop = harness.Loop(state, in_flight(t), search)
+    loop = harness.Loop(state, in_flight(t), harness.program_search(
+        getattr(w, "row_filter", None)))
     n = len(w.traced)
     acts = [torch.profiler.ProfilerActivity.CUDA if device.type == "cuda"
             else torch.profiler.ProfilerActivity.CPU]

@@ -1,7 +1,8 @@
 """The plain reference: exact nearest neighbours by brute force, and the
 exact squared L2 of given rows, in plain PyTorch. It imports nothing of
 the program and takes nothing the program made: only the benchmark's own
-base rows and queries."""
+base rows and queries, and in a filtered cell its own allow-list, over
+whose rows alone the brute force ranks."""
 
 from __future__ import annotations
 
@@ -12,12 +13,16 @@ import torch
 CHUNK_BYTES = 1 << 30
 
 
-def brute_force_topk(base, queries, k):
+def brute_force_topk(base, queries, k, allowed=None):
     """(squared distances [nq, k] f32, ids [nq, k] int64) of the ``k``
     nearest base rows of every query, ascending: ||q||^2 - 2<q, x> +
     ||x||^2 over row chunks of at most ``CHUNK_BYTES`` of distances, each
     chunk's top-k merged into the running one. The product runs in float32
-    as the process sets it (the harness turns TF32 off)."""
+    as the process sets it (the harness turns TF32 off). With ``allowed``
+    (ids [m]) only those base rows are ranked."""
+    if allowed is not None:
+        d, i = brute_force_topk(base[allowed], queries, k)
+        return d, allowed[i]
     nq, n = queries.shape[0], base.shape[0]
     rows = max(k, min(n, CHUNK_BYTES // (4 * max(nq, 1))))
     qq = (queries * queries).sum(1, keepdim=True)
